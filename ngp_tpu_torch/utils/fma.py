@@ -1,0 +1,19 @@
+"""Fused multiply-add with one float32 rounding.
+
+Counterpart: none in ngp_tpu as code; XLA contracts `a * b + c` into a fused
+multiply-add when it compiles ngp_tpu's lattice positions and hash-grid
+coordinates. The port computes those sums through this helper so that the
+same inputs land on the same lattice points and grid cells: the product of
+two float32 values is exact in float64 and the float64 sum is rounded once
+more to float32 (a double rounding that can differ from a true fma only when
+the float64 sum sits exactly on a float32 tie).
+"""
+
+import torch
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32(a * b + c) with the product unrounded; tensors broadcast, and
+    python floats are taken as float32 values."""
+    a, b, c = (x.to(torch.float64) if isinstance(x, torch.Tensor) else float(torch.tensor(x, dtype=torch.float32)) for x in (a, b, c))
+    return (a * b + c).to(torch.float32)
