@@ -1,11 +1,16 @@
-"""Cascaded occupancy grid: state, bitfield update and lookups, on torch.
+"""Cascaded occupancy grid: state, upkeep, bitfield update and lookups, on torch.
 
 Counterpart: ngp_tpu/grid/occupancy.py:37-59 (GridState, create_grid_state),
-:62-92 (occupied_aabb), :274-300 (update_occupancy), :448-462
+:62-92 (occupied_aabb), :95-147 (cell_centers, mark_untrained_grid),
+:150-172 (_pcg4d), :175-256 (sample_grid_positions), :259-271
+(splat_density_ema), :274-300 (update_occupancy), :448-462
 (occupancy_lookup) and :465-504 (mip_from_pos, static_dt_mip). Same linear
-layout (x + G*y + G^2*z) and the same (c, x, y, z) occupancy axes. The grid
-sampling/splat half (training) and the pooled/packed march accelerators are
-not ported: the port's march tests every lattice point directly.
+layout (x + G*y + G^2*z) and the same (c, x, y, z) occupancy axes. Differs:
+the two u32 salts that JAX draws from a threefry key are an explicit `salts`
+argument (the caller draws them from a torch.Generator; tests inject JAX's),
+and uint32 arithmetic runs in int64 masked to 32 bits (utils/qmc.py). The
+pooled/packed march accelerators are not ported: the port's march tests
+every lattice point directly.
 """
 
 import math
@@ -14,6 +19,9 @@ from typing import NamedTuple
 import torch
 
 from ngp_tpu_torch.utils.config import SamplerConfig
+from ngp_tpu_torch.utils.qmc import mul32
+
+_MASK = 0xFFFFFFFF
 
 
 class GridState(NamedTuple):
@@ -133,3 +141,105 @@ def static_dt_mip(dt: float, grid_size: int, n_cascades: int) -> int:
         return -1
     _, e = math.frexp(d)
     return int(min(max(e, 0), n_cascades - 1))
+
+
+# ---------------------------------------------------------------- grid upkeep
+def cell_centers(cfg: SamplerConfig, cascade: int, device="cpu") -> torch.Tensor:
+    """World-space centers of one cascade's cells, (G^3, 3), linear order."""
+    g = cfg.grid_size
+    ax = (torch.arange(g, dtype=torch.float32, device=device) + 0.5) / g - 0.5
+    z, y, x = torch.meshgrid(ax, ax, ax, indexing="ij")
+    pos = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+    return pos * float(1 << cascade) + 0.5
+
+
+def mark_untrained_grid(cfg: SamplerConfig, resolution, focal_length, xforms: torch.Tensor) -> torch.Tensor:
+    """Initial density grid (n_cascades * G^3,): 0 where any camera sees the
+    cell, else -1. A cell (center p, radius r) is visible from camera j if
+    z = (p - t_j)·fwd_j > 0 and |x|-r < z * w/(2 fx), |y|-r < z * h/(2 fy)."""
+    dev = xforms.device
+    half_resx = torch.tensor(0.5 * float(resolution[0]), dtype=torch.float32)
+    half_resy = torch.tensor(0.5 * float(resolution[1]), dtype=torch.float32)
+    fx, fy = float(focal_length[0]), float(focal_length[1])
+    xf = xforms.to(torch.float32)
+    chunk = min(1 << 16, cfg.n_grid_elements)
+    grids = []
+    for c in range(cfg.n_cascades):
+        pos = cell_centers(cfg, c, dev)
+        radius = 0.5 * math.sqrt(3.0) * (1 << c) / cfg.grid_size
+        vis = []
+        for s in range(0, pos.shape[0], chunk):
+            ploc = pos[s : s + chunk, None, :] - xf[None, :, :, 3]  # (chunk, n_images, 3)
+            cam = [torch.einsum("pnc,nc->pn", ploc, xf[:, :, k]) for k in range(3)]
+            v = (
+                (cam[2] > 0)
+                & (torch.abs(cam[0]) - radius < cam[2] / fx * half_resx)
+                & (torch.abs(cam[1]) - radius < cam[2] / fy * half_resy)
+            )
+            vis.append(v.any(dim=1))
+        grids.append(torch.where(torch.cat(vis), 0.0, -1.0))
+    return torch.cat(grids)
+
+
+def pcg4d(x, y, z, w):
+    """Counter-based u32x4 hash (pcg4d, Jarzynski & Olano) on uint32-in-int64
+    tensors; bit-exact with ngp_tpu's _pcg4d."""
+    x, y, z, w = ((mul32(v, 1664525) + 1013904223) & _MASK for v in (x, y, z, w))
+    for i in range(2):
+        x = (x + mul32(y, w)) & _MASK
+        y = (y + mul32(z, x)) & _MASK
+        z = (z + mul32(x, y)) & _MASK
+        w = (w + mul32(y, z)) & _MASK
+        if i == 0:
+            x, y, z, w = x ^ (x >> 16), y ^ (y >> 16), z ^ (z >> 16), w ^ (w >> 16)
+    return x, y, z, w
+
+
+def _u24_unit(h: torch.Tensor) -> torch.Tensor:
+    """Top 24 bits of a u32 as a float32 in [0, 1) (exact)."""
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def sample_grid_positions(cfg: SamplerConfig, density: torch.Tensor, salts, n_uniform: int, n_nonuniform: int, step: int):
+    """Pick grid cells and a random position inside each: ((N, 3) world pos,
+    (N,) int64 cell index). `salts` are the two u32 draws ngp_tpu takes from
+    its key. The uniform half keeps its first candidate cell; the
+    nonuniform half keeps the first of 10 above min_optical_thickness (else
+    the last)."""
+    dev = density.device
+    g, n_cells = cfg.grid_size, cfg.n_grid_elements
+    tot = n_uniform + n_nonuniform
+    s0, s1 = (int(s) & _MASK for s in salts)
+    i = torch.cat([torch.arange(n_uniform, device=dev), torch.arange(n_nonuniform, device=dev) + n_uniform])
+    step = int(step) & _MASK
+    h0, h1, h2, h3 = pcg4d(i, torch.full_like(i, s0), torch.full_like(i, s1), torch.full_like(i, step))
+    u = torch.stack([_u24_unit(h0), _u24_unit(h1), _u24_unit(h2)], dim=-1)
+    levels = (_u24_unit(h3) * cfg.n_cascades).to(torch.int64).clamp(max=cfg.n_cascades - 1)
+
+    shifted = (i + ((step * tot) & _MASK)) & _MASK
+    cand0 = ((mul32(shifted, 56924617) + 96925573) & _MASK) % n_cells + levels * n_cells
+    idx = cand0
+    if n_nonuniform > 0:
+        j = torch.arange(1, 10, device=dev)
+        lin = (mul32(shifted[n_uniform:, None], 56924617) + mul32(j[None, :], 19349663) + 96925573) & _MASK
+        cand_n = torch.cat([cand0[n_uniform:, None], lin % n_cells + levels[n_uniform:, None] * n_cells], dim=1)
+        ok = density[cand_n] > cfg.min_optical_thickness
+        first = torch.argmax(ok.to(torch.uint8), dim=1)
+        pick = torch.where(ok.any(dim=1), first, 9)
+        idx = torch.cat([cand0[:n_uniform], torch.gather(cand_n, 1, pick[:, None])[:, 0]])
+
+    local = idx % n_cells
+    cell = torch.stack([local % g, (local // g) % g, local // (g * g)], dim=-1).to(torch.float32)
+    mip_scale = ((127 + idx // n_cells).to(torch.int32) << 23).view(torch.float32)[:, None]
+    pos = ((cell + u) / g - 0.5) * mip_scale + 0.5
+    return pos, idx
+
+
+def splat_density_ema(cfg: SamplerConfig, state: GridState, indices: torch.Tensor, densities: torch.Tensor) -> GridState:
+    """Scatter-max the samples' optical thickness (density * min step), then
+    EMA-max decay: new = prev < 0 ? prev : max(prev * decay, splat)."""
+    optical = densities * cfg.min_cone_stepsize
+    current = torch.zeros_like(state.density).scatter_reduce(0, indices, optical, "amax", include_self=True)
+    prev = state.density
+    new = torch.where(prev < 0.0, prev, torch.maximum(prev * cfg.ema_decay, current))
+    return state._replace(density=new, step=state.step + 1)

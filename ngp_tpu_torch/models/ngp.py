@@ -6,16 +6,21 @@ Differs: NGPModel is an nn.Module that owns its parameters (hash table in
 the (L, T_pad, F) layout, MLP matrices as (in, out) fp32 lists) instead of a
 static definition over a separate pytree; `prepare_inference` caches the
 bf16 fused-kernel weights rather than a packed oct hash view;
-`rgbsigma_raw` takes the fused CUDA kernel on CUDA tensors whenever
-`supports()` holds (ngp_tpu gates the Pallas kernel behind NGP_FUSED_MLP)
-and the mlp_apply chain otherwise. input_gradient (Normals) is not ported.
+`rgbsigma_raw` takes the fused CUDA kernels on CUDA tensors whenever
+`supports()` holds (ngp_tpu gates the Pallas kernels behind NGP_FUSED_MLP)
+and the mlp_apply chain otherwise. Training turns on requires_grad
+(`trainable`); rgbsigma_raw is then differentiable in every parameter
+(the hash table through the oadd backward of hash_encode_const_pos, the
+heads through the fused forward/backward kernel pair), while density_raw
+stays a no-grad mlp_apply, as ngp_tpu's grid update uses it.
+input_gradient (Normals) is not ported.
 """
 
 import torch
 from torch import nn
 
-from ngp_tpu_torch.ops.fused_mlp import fused_mlp_fwd, pack_weights, supports
-from ngp_tpu_torch.ops.hash_encoding import HashGridSpec, hash_encode, hash_table_init
+from ngp_tpu_torch.ops.fused_mlp import fused_heads, fused_mlp_fwd, pack_weights, supports
+from ngp_tpu_torch.ops.hash_encoding import HashGridSpec, hash_encode, hash_encode_const_pos, hash_table_init
 from ngp_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from ngp_tpu_torch.ops.sh_encoding import sh_encode
 from ngp_tpu_torch.utils.config import NetworkConfig
@@ -87,6 +92,17 @@ class NGPModel(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def trainable(self, on: bool = True):
+        """Turn requires_grad on (training) or off for every parameter."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        self._fused = None
+        return self
+
+    def param_list(self) -> list:
+        """[hash_table, *density_mlp, *rgb_mlp]: the optimizer's leaf order."""
+        return [self.hash_table, *self.density_mlp, *self.rgb_mlp]
+
     # ------------------------------------------------------------- inference
     def prepare_inference(self):
         """Cast the MLP weights to bf16 once per parameter set (the fused
@@ -102,15 +118,24 @@ class NGPModel(nn.Module):
         cfg = self.config.density_mlp
         return mlp_apply(list(self.density_mlp), enc, cfg.activation, cfg.output_activation)
 
-    @torch.no_grad()
     def rgbsigma_raw(self, pos: torch.Tensor, warped_dir: torch.Tensor):
-        """(N,3), (N,3) -> raw (rgb (N,3), sigma (N,)) pre-activation."""
-        enc = hash_encode(self.hash_table, pos, self.grid_spec)
+        """(N,3), (N,3) -> raw (rgb (N,3), sigma (N,)) pre-activation;
+        differentiable in the parameters when they require grad."""
+        train = torch.is_grad_enabled() and self.hash_table.requires_grad
+        if train:
+            enc = hash_encode_const_pos(self.hash_table, pos, self.grid_spec)
+        else:
+            enc = hash_encode(self.hash_table, pos, self.grid_spec)
         sh = sh_encode(warped_dir, self.config.sh_degree)
         dcfg, rcfg = self.config.density_mlp, self.config.rgb_mlp
         if supports(dcfg, rcfg):
-            self.prepare_inference()
-            rgb_raw, density_out = fused_mlp_fwd(enc, sh, self._fused)
+            if train:
+                rgb_raw, density_out = fused_heads(enc, sh, list(self.density_mlp), list(self.rgb_mlp))
+            else:
+                # a trainable model's weights move every step: no cached pack
+                trainable = self.hash_table.requires_grad
+                fw = pack_weights(list(self.density_mlp), list(self.rgb_mlp)) if trainable else self.prepare_inference()._fused
+                rgb_raw, density_out = fused_mlp_fwd(enc, sh, fw)
             return rgb_raw, density_out[:, 0]
         density_out = mlp_apply(list(self.density_mlp), enc, dcfg.activation, dcfg.output_activation)
         rgb_in = torch.cat([density_out, sh], dim=-1)

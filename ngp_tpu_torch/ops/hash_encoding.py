@@ -1,15 +1,20 @@
-"""Multiresolution hash-grid encoding (oadd variant, forward only) on torch.
+"""Multiresolution hash-grid encoding (oadd variant) on torch.
 
 Counterpart: ngp_tpu/ops/hash_encoding.py:90-151 (HashGridSpec.create),
-:425-436 (_oct_offsets), :459-486 (_oct_base_w0) and :498-513
-(_encode_oadd_packed). Differs deliberately in the gather: ngp_tpu gathers
-one row of a packed "oct" view (8*F floats per row, ~0.5 GB at full size)
-because TPU gathers cost per row; the port gathers the 8 corners directly
+:425-436 (_oct_offsets), :459-486 (_oct_base_w0), :498-513
+(_encode_oadd_packed), :520-650 (_bwd_oadd_stochastic, _bwd_oadd without
+d/dpos) and :723-755 (hash_encode_const_pos, the training encode).
+Differs deliberately in the gather: ngp_tpu gathers one row of a packed
+"oct" view (8*F floats per row, ~0.5 GB at full size) because TPU gathers
+cost per row; the port gathers the 8 corners directly
 from the (L, T_pad, F) table. Corner k of a sample is row idx0 + offs[k],
 taken mod T_pad. That is exact: every hash level's size equals padded_size,
 and on dense levels the corner clamp keeps idx0 + offs[k] inside the level.
 All levels are evaluated in one batched pass instead of a per-level scan.
-The "xadd" and "tcnn" variants and the backward are not ported yet.
+The backward scatters into the (L, T_pad, F) table with index_add_ in fp32
+(ngp_tpu accumulates in bf16 by default; on the card the fp32 sums have no
+fixed order). The analytic d/dpos (input_gradient) and the "xadd" and
+"tcnn" variants are not ported yet.
 
 Index math runs in int64 with uint32 wraparound (masked to 32 bits), as the
 JAX code computes it in uint32; the grid coordinate pos*scale + 0.5 is a
@@ -23,6 +28,7 @@ import torch
 
 from ngp_tpu_torch.utils.config import HashEncodingConfig
 from ngp_tpu_torch.utils.fma import fma
+from ngp_tpu_torch.utils.qmc import mul32
 
 _MASK = 0xFFFFFFFF
 
@@ -166,3 +172,91 @@ def hash_encode(table: torch.Tensor, pos: torch.Tensor, spec: HashGridSpec) -> t
     feats = table.reshape(L * T_pad, F)[rows.reshape(-1)].reshape(n, L, 8, F)
     out = (w8[..., None] * feats).sum(dim=2)  # (N, L, F)
     return out.reshape(n, L * F)
+
+
+# ------------------------------------------------------------------ backward
+def _rows(idx0: torch.Tensor, offs: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """Table row of corner(s) `offs` from base row idx0, wrapped mod the level size."""
+    row = idx0 + offs
+    return torch.where(row >= size, row - size, row)
+
+
+def hash_bwd_oadd(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
+    """Exact oadd table gradient (no d/dpos): every sample deposits w8[k] * g
+    into all 8 corners of its cell. pos (N, 3), g (N, L*F) -> (L, T_pad, F)
+    fp32, accumulated in fp32."""
+    n, L, F, T = pos.shape[0], spec.n_levels, spec.n_features, spec.padded_size
+    lc = _level_constants(spec, pos.device)
+    idx0, w0 = oct_base_w0(pos, lc)
+    bits = torch.tensor([[(k >> d) & 1 for d in range(3)] for k in range(8)], dtype=torch.bool, device=pos.device)
+    W = torch.where(bits[None, None], 1.0 - w0[:, :, None, :], w0[:, :, None, :])
+    w8 = W[..., 0] * W[..., 1] * W[..., 2]  # (N, L, 8)
+    rows = _rows(idx0[:, :, None], lc["offs"][None], lc["size"][None, :, None])
+    rows = rows + (torch.arange(L, device=pos.device) * T)[None, :, None]
+    contrib = w8[..., None] * g.reshape(n, L, 1, F)
+    d = torch.zeros((L * T, F), dtype=torch.float32, device=pos.device)
+    d.index_add_(0, rows.reshape(-1), contrib.reshape(-1, F))
+    return d.reshape(L, T, F)
+
+
+def hash_bwd_oadd_stochastic(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
+    """One-corner unbiased table gradient (ngp_tpu's _bwd_oadd_stochastic):
+    per (sample, level) one corner drawn with probability equal to its
+    trilinear weight, from a hash of pos's float32 bits, receives the
+    unweighted g. With stochastic_level_rate kr > 1 (and N % kr == 0),
+    sample slot i deposits only into levels l with l % kr == i % kr, scaled
+    by kr. Accumulates in fp32 (ngp_tpu: bf16 by default)."""
+    n, L, F, T = pos.shape[0], spec.n_levels, spec.n_features, spec.padded_size
+    dev = pos.device
+    kr = spec.stochastic_level_rate
+    if kr <= 1 or n % kr != 0:
+        kr = 1
+    lc = _level_constants(spec, dev)
+    idx0, w0 = oct_base_w0(pos, lc)  # (N, L), (N, L, 3)
+    pbits = pos.contiguous().view(torch.int32).to(torch.int64) & _MASK
+    hb = mul32(pbits[:, 0], 0x9E3779B1) ^ mul32(pbits[:, 1], 0x85EBCA77) ^ mul32(pbits[:, 2], 0xC2B2AE3D)
+    lsalt = mul32(torch.arange(1, L + 1, device=dev), 0x27D4EB2F)
+    h = hb[:, None] ^ lsalt[None, :]  # (N, L)
+    k = torch.zeros((n, L), dtype=torch.int64, device=dev)
+    for d in range(3):  # one independent 24-bit uniform per dim
+        h = mul32(h ^ (h >> 15), 0x2C1B3C6D)
+        u = (h >> 8).to(torch.float32) * (2.0**-24)
+        k = k | ((u >= w0[..., d]).to(torch.int64) << d)
+    offs = torch.gather(lc["offs"][None].expand(n, L, 8), 2, k[..., None])[..., 0]
+    rows = _rows(idx0, offs, lc["size"][None, :]) + (torch.arange(L, device=dev) * T)[None, :]
+    gl = g.reshape(n, L, F)
+    if kr > 1:
+        # in each run of kr slots, level l is kept by slot l % kr: fixed
+        # shapes, so no host sync
+        lv = torch.arange(L, device=dev)
+        rows = rows.reshape(n // kr, kr, L)[:, lv % kr, lv]
+        gl = gl.reshape(n // kr, kr, L, F)[:, lv % kr, lv] * float(kr)
+    d = torch.zeros((L * T, F), dtype=torch.float32, device=dev)
+    d.index_add_(0, rows.reshape(-1), gl.reshape(-1, F))
+    return d.reshape(L, T, F)
+
+
+class _HashEncodeConstPos(torch.autograd.Function):
+    """hash_encode with a table gradient and none for pos (ngp_tpu's
+    hash_encode_const_pos, ops/hash_encoding.py:723-755)."""
+
+    @staticmethod
+    def forward(ctx, table, pos, spec):
+        ctx.save_for_backward(pos)
+        ctx.spec = spec
+        return hash_encode(table, pos, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        spec = ctx.spec
+        bwd = hash_bwd_oadd_stochastic if spec.stochastic_bwd else hash_bwd_oadd
+        return bwd(pos, spec, g.contiguous()), None, None
+
+
+def hash_encode_const_pos(table: torch.Tensor, pos: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """Differentiable in `table` (stochastic or exact backward by
+    spec.stochastic_bwd), constant in `pos`."""
+    if spec.variant != "oadd":
+        raise NotImplementedError(f"hash variant {spec.variant!r} is not ported (oadd only)")
+    return _HashEncodeConstPos.apply(table, pos, spec)

@@ -2,7 +2,7 @@
 
 Counterpart: ngp_tpu/sampling/lattice.py:47-63 (_march_mip), :221-277
 (n_lattice_points, lattice_t, lattice_dt) and :306-373 (_chunk_mask,
-count_samples). Same semantics: a ray visits t_i = startt + i*dt (closed
+count_samples, with its per-ray masks). Same semantics: a ray visits t_i = startt + i*dt (closed
 form for cone stepping), stops at the first lattice point outside the scene
 box, and takes at most maximum_marching_steps occupied points. Differs in
 structure: the port marches only the rays still alive, one chunk of lattice
@@ -107,16 +107,22 @@ def march_chunk(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, taken, 
     return mask, t, pos, reach[:, -1]
 
 
-def count_samples(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt) -> torch.Tensor:
-    """Occupied samples each ray takes over the whole lattice, (R,) int64."""
+def count_samples(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, return_masks: bool = False):
+    """Occupied samples each ray takes over the whole lattice, (R,) int64;
+    with return_masks also the (R, n_lattice) bool mask of the lattice
+    points each ray samples (ngp_tpu's count_samples(return_masks=True))."""
     R = o.shape[0]
     taken = torch.zeros((R,), dtype=torch.int64, device=o.device)
+    n_lat = n_lattice_points(cfg)
+    masks = torch.zeros((R, n_lat), dtype=torch.bool, device=o.device) if return_masks else None
     ids = torch.arange(R, device=o.device)
-    for i0 in range(0, n_lattice_points(cfg), CHUNK):
+    for i0 in range(0, n_lat, CHUNK):
         if ids.numel() == 0:
             break
         mask, _, _, inside_end = march_chunk(cfg, aabb, occupancy, o[ids], d[ids], startt[ids], taken[ids], i0)
+        if return_masks:
+            masks[ids, i0 : i0 + CHUNK] = mask
         t_new = taken[ids] + mask.sum(dim=1)
         taken[ids] = t_new
         ids = ids[inside_end & (t_new < cfg.maximum_marching_steps)]
-    return taken
+    return (taken, masks) if return_masks else taken

@@ -1,11 +1,14 @@
-"""Msgpack snapshot loading (the load half).
+"""Msgpack snapshots: save and load.
 
-Counterpart: ngp_tpu/train/snapshot.py:27-37 (_decode_tree) and :76-96
-(load_snapshot): the model-config document with a "snapshot" subtree whose
-ndarray leaves are {"__nd__": True, dtype, shape, raw bytes}. Decodes to
-numpy (the port converts to tensors in models/interop.py). Saving and the
-reference (tcnn) interchange format are not ported yet. msgpack is imported
-inside load_snapshot: nothing else in the port needs it.
+Counterpart: ngp_tpu/train/snapshot.py:17-37 (_encode_tree, _decode_tree),
+:40-74 (save_snapshot) and :76-96 (load_snapshot): the model-config document
+with a "snapshot" subtree whose ndarray leaves are {"__nd__": True, dtype,
+shape, raw bytes}. Arrays go in and come out as numpy in ngp_tpu's layout
+(models/interop.py converts), so either package loads the other's
+snapshots. Differs: the optimizer state is not serialized (ngp_tpu's
+serialize_optimizer=False), and the reference (tcnn) interchange format is
+not ported. msgpack is imported inside save/load: nothing else in the port
+needs it.
 """
 
 import numpy as np
@@ -20,6 +23,41 @@ def decode_tree(tree):
     if isinstance(tree, list):
         return [decode_tree(v) for v in tree]
     return tree
+
+
+def encode_tree(tree):
+    """numpy ndarray leaves -> {"__nd__": True, dtype, shape, data} dicts."""
+    if isinstance(tree, np.ndarray):
+        return {"__nd__": True, "dtype": str(tree.dtype), "shape": list(tree.shape), "data": tree.tobytes()}
+    if isinstance(tree, dict):
+        return {k: encode_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [encode_tree(v) for v in tree]
+    return tree
+
+
+def save_snapshot(
+    path, config_doc: dict, *, params, ema_params, density_grid, grid_step, i_step: int, scene_scale: float, scene_offset, controller=None
+):
+    """Write the config document with its "snapshot" subtree; params and
+    ema_params are numpy pytrees in ngp_tpu's layout (interop.params_to_numpy)."""
+    import msgpack
+
+    doc = dict(config_doc)
+    snap = {
+        "params": encode_tree(params),
+        "ema_params": encode_tree(ema_params),
+        "density_grid": encode_tree(np.asarray(density_grid, np.float32)),
+        "grid_step": int(grid_step),
+        "i_step": int(i_step),
+        "scene_scale": float(scene_scale),
+        "scene_offset": [float(v) for v in scene_offset],
+    }
+    if controller:
+        snap["controller"] = dict(controller)
+    doc["snapshot"] = snap
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(doc, use_bin_type=True))
 
 
 def load_snapshot(path):
@@ -42,4 +80,6 @@ def load_snapshot(path):
         "scene_scale": float(snap_raw["scene_scale"]),
         "scene_offset": snap_raw["scene_offset"],
     }
+    if "controller" in snap_raw:
+        snap["controller"] = dict(snap_raw["controller"])
     return doc, snap

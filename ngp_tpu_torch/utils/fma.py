@@ -17,3 +17,19 @@ def fma(a, b, c) -> torch.Tensor:
     python floats are taken as float32 values."""
     a, b, c = (x.to(torch.float64) if isinstance(x, torch.Tensor) else float(torch.tensor(x, dtype=torch.float32)) for x in (a, b, c))
     return (a * b + c).to(torch.float32)
+
+
+def dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of a * b as XLA's CPU dot compiles a short
+    contraction: the first product rounded, each later one added by a fused
+    multiply-add, in order."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (torch's CPU sqrt may be an ulp
+    off; the float64 root rounded once to float32 is exact)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)

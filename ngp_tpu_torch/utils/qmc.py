@@ -39,8 +39,9 @@ def _u32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.uint32).astype(np.int64), device=device)
 
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for a in [0, 2^32) and a constant c in [0, 2^32)."""
+def mul32(a: torch.Tensor, c) -> torch.Tensor:
+    """(a * c) mod 2^32 for a and c in [0, 2^32): c a Python int or a tensor
+    (split in 16-bit halves so no int64 product overflows)."""
     lo, hi = c & 0xFFFF, c >> 16
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK
 
@@ -63,10 +64,10 @@ def reverse_bits(x: torch.Tensor) -> torch.Tensor:
 
 def _laine_karras(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     x = (x + seed) & _MASK
-    x = x ^ _mul32(x, 0x6C50B47C)
-    x = x ^ _mul32(x, 0xB82F1E52)
-    x = x ^ _mul32(x, 0xC7AFE638)
-    x = x ^ _mul32(x, 0x8D22F6E6)
+    x = x ^ mul32(x, 0x6C50B47C)
+    x = x ^ mul32(x, 0xB82F1E52)
+    x = x ^ mul32(x, 0xC7AFE638)
+    x = x ^ mul32(x, 0x8D22F6E6)
     return x
 
 

@@ -105,3 +105,88 @@ def test_card_frame_matches_cpu_frame(card):
     err = (frames[0] - frames[1]).abs()
     assert frames[1][..., 3].max() > 0.05
     assert err.max() <= 2e-2 and err.mean() <= 1e-3
+
+
+# the tolerances of tests/test_fused_mlp.py:59 for gradients
+BWD_RTOL, BWD_ATOL = 3e-2, 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,d_hidden,r_hidden,width",
+    [
+        (2**16, 1, 2, 64),
+        (2**16 + 37, 1, 2, 64),
+        (1000, 3, 3, 16),
+        (4096, 1, 2, 128),
+        (5, 1, 1, 64),
+        (777, 2, 2, 40),
+        (641, 1, 2, 64),  # one row past five 128-row tiles
+    ],
+)
+def test_fused_mlp_bwd_kernel_matches_plain(card, n, d_hidden, r_hidden, width):
+    from ngp_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(n + width)
+    fw = fm.pack_weights(_weights(gen, 32, width, 16, d_hidden, card), _weights(gen, 32, width, 3, r_hidden, card))
+    enc, sh = torch.randn((n, 32), generator=gen).to(card), torch.randn((n, 16), generator=gen).to(card)
+    g_rgb, g_dens = torch.randn((n, 3), generator=gen).to(card), torch.zeros((n, 16)).to(card)
+    g_dens[:, 0] = torch.randn((n,), generator=gen).to(card)
+    before = fm.N_LAUNCHES_BWD
+    k_enc, k_w = fm.fused_mlp_bwd(enc, sh, g_rgb, g_dens, fw)
+    torch.cuda.synchronize()
+    assert fm.N_LAUNCHES_BWD == before + 1
+    p_enc, p_w = fm.fused_mlp_bwd_plain(enc, sh, g_rgb, g_dens, fw)
+    torch.testing.assert_close(k_enc, p_enc, rtol=BWD_RTOL, atol=BWD_ATOL * p_enc.abs().max().item())
+    torch.testing.assert_close(k_w, p_w, rtol=BWD_RTOL, atol=BWD_ATOL * p_w.abs().max().item())
+    # deterministic: the block reduction runs in a fixed order
+    assert torch.equal(fm.fused_mlp_bwd(enc, sh, g_rgb, g_dens, fw)[1], k_w)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_bwd_raises_when_shared_memory_is_short(card):
+    from ngp_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(4)
+    fw = fm.pack_weights(_weights(gen, 32, 128, 16, 4, card), _weights(gen, 32, 128, 3, 4, card))
+    z = torch.zeros((64, 32), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mlp_bwd(z, z[:, :16], z[:, :3], z[:, :16], fw)
+
+
+ADAM_KW = dict(lr=1e-2, bc1=1 - 0.9**10, bc2=1 - 0.99**10, b1=0.9, b2=0.99, eps=1e-15, decay=0.95)
+
+
+# n % 4 of 0, 3 and 1: the last elements that do not fill a 16-byte group
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lazy,l2", [(1 << 20, True, 0.0), (4099, False, 1e-6), (1001, True, 0.0), (3, True, 0.0)])
+def test_adam_ema_kernel_matches_plain(card, n, lazy, l2):
+    from ngp_tpu_torch.train import optimizer as opt
+
+    gen = torch.Generator().manual_seed(n)
+    g = torch.randn((n,), generator=gen) * 0.01
+    g[torch.rand((n,), generator=gen) > 0.04] = 0.0
+    g[-1] = 0.01  # a visited element among the last ones
+    state = [torch.randn((n,), generator=gen) * s for s in (1e-3, 1e-4, 1e-2, 1e-2)]
+    state[1] = state[1].abs()
+    kw = dict(ADAM_KW, l2=l2, lazy=lazy)
+    plain = [s.clone() for s in state]
+    opt.adam_ema_plain(g, *plain, **kw)
+    dev = [s.to(card) for s in state]
+    before = opt.N_LAUNCHES
+    opt.adam_ema(g.to(card), *dev, **kw)
+    torch.cuda.synchronize()
+    assert opt.N_LAUNCHES == before + 1
+    for got, want in zip(dev, plain, strict=True):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_adam_ema_rejects_unaligned_buffers(card):
+    from ngp_tpu_torch.train import optimizer as opt
+
+    bufs = [torch.zeros((1001,), device=card) for _ in range(5)]
+    before = opt.N_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        opt.adam_ema(*(b[1:] for b in bufs), **ADAM_KW, lazy=True)
+    assert opt.N_LAUNCHES == before

@@ -18,16 +18,23 @@ names = [m.name for m in pkgutil.walk_packages(ngp_tpu_torch.__path__, "ngp_tpu_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "ngp_tpu" or m.startswith("ngp_tpu."))
-print(len(names), ",".join(bad))
+print(",".join(names), ",".join(bad))
 """
+
+# the training slice's modules, beside the serving slice's
+TRAINING_MODULES = (
+    "data.png", "data.nerf_synthetic", "data.synthetic", "ops.kernels", "ops.layout", "ops.losses",
+    "render.composite", "sampling.training", "train.optimizer", "train.trainer", "train.snapshot",
+)
 
 
 def test_port_imports_no_jax_and_no_ngp_tpu():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120, check=True
     ).stdout.split()
-    n_modules = int(out[0])
-    assert n_modules >= 16, out
+    names = out[0].split(",")
+    assert len(names) >= 36, out
+    assert {f"ngp_tpu_torch.{m}" for m in TRAINING_MODULES} <= set(names)
     assert len(out) == 1, f"port imported {out[1]}"
 
 
