@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit; build every kernel of the port
      from the sources in the checkout (one nvcc per csrc/*.cu, all started
-     together, sm_90a);
+     together, sm_90a) and print the registers, stack and spills ptxas
+     reports for each instantiation of the two fused MLP kernels;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (fused_mlp_fwd and fused_mlp_bwd on KERNEL_CASES,
      adam_ema on the base.json hash table, hash_encode_fwd and both entries
@@ -29,8 +30,10 @@ Phases, in order; any failure exits non-zero:
      profiled; a held-out view must beat PSNR_FLOOR; one train() call of a
      small config on the card and on the CPU, from the same state and draws,
      must give the same loss within TRAIN_REF_RTOL;
-  5. print one {"kernels": [...]} line, one {"serve": {...}} line, one
-     {"train": {...}} line, and as the last line {"ok": true, "device": {...}}.
+  5. print each kernel's time alone beside its device time per launch inside
+     the profiled serve frame and train() call; print one {"kernels": [...]}
+     line, one {"serve": {...}} line, one {"train": {...}} line, and as the
+     last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and ngp_tpu_torch only (never jax or ngp_tpu). Needs
 neither PIL nor msgpack: the scene's PNGs go through ngp_tpu_torch/data/png.py
@@ -40,6 +43,7 @@ and no snapshot is saved.
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +123,16 @@ TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd"
 # whole contribution, turning its normal. On an H100 (PERF.md, section 6) that
 # moved one pixel of 3072 by 2.4e-2, with a mean of 6.9e-5.
 REF_LIMITS = {"Shade": (2e-2, 1e-3), "Normals": (5e-2, 1e-3)}
+# device kernels of each wrapper, for its time per launch inside a profiled
+# run: (kernels whose launches count, kernels whose time counts); the
+# backward's launch runs its fixed-order block reduction too
+PROFILE_KERNELS = {
+    "fused_mlp_fwd": (("fused_mlp_fwd_kernel",), ("fused_mlp_fwd_kernel",)),
+    "fused_mlp_bwd": (("fused_mlp_bwd_kernel",), ("fused_mlp_bwd_kernel", "reduce_blocks_kernel")),
+    "adam_ema": (("adam_ema_kernel",), ("adam_ema_kernel",)),
+    "hash_encode_fwd": (("hash_encode_fwd_kernel",), ("hash_encode_fwd_kernel",)),
+    "hash_encode_bwd": (("hash_bwd_stochastic_kernel", "hash_bwd_exact_kernel"),) * 2,
+}
 # (memory bytes/s, bf16 dense tensor FLOP/s, fp32 FLOP/s outside the tensor
 # cores) by card, from NVIDIA's data sheets
 PEAKS = {
@@ -331,6 +345,7 @@ def phase_profile(tb, frame_ms: float):
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / frame_ms,
         "top_kernels": [[k[:80], ms, c] for k, ms, c in rows[:8]],
+        "in_path": in_path(rows),
         "network_batch_2^18": batch,
     }
 
@@ -395,6 +410,41 @@ def device_profile(fn):
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def in_path(rows) -> dict:
+    """Device ms per wrapper launch of each kernel of PROFILE_KERNELS inside a
+    profiled run (rows from device_profile), with the launches seen."""
+    def match(key, names):
+        return any(re.search(rf"\b{k}\b", key) for k in names)
+
+    out = {}
+    for name, (counted, timed) in PROFILE_KERNELS.items():
+        launches = sum(c for key, _, c in rows if match(key, counted))
+        ms = sum(t for key, t, _ in rows if match(key, timed))
+        out[name] = {"ms_per_launch": ms / launches if launches else None, "launches": launches, "ms": ms}
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel<template args>: registers, stack and spill bytes} from nvcc's
+    -Xptxas -v output (kernels.BUILD_LOGS)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            base = re.search(r"([a-z_]+_kernel)", m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            cur = (base.group(1) if base else m.group(1)) + (f"<{','.join(args)}>" if args else "")
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_backward_kernels(fm, bw, flops):
@@ -700,6 +750,7 @@ def phase_train(Testbed):
             "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / call_ms,
             "top_kernels": [[k[:80], ms, c] for k, ms, c in rows[:10]],
+            "in_path": in_path(rows),
         },
         "psnr_test_view_0": psnr,
     }
@@ -771,6 +822,11 @@ def main():
     print(f"built {sorted(str(p) for p in libs.values())} in {time.perf_counter() - t:.1f} s")
     for src, log in kb.BUILD_LOGS.items():
         print(f"--- {src}.cu\n{log.strip()}")
+    ptxas = {src: ptxas_summary(log) for src, log in kb.BUILD_LOGS.items()}
+    for src in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        for inst, info in ptxas.get(src, {}).items():
+            print(f"ptxas {inst}: {info.get('registers')} registers, {info.get('stack')} B stack, "
+                  f"{info.get('spill_stores')} B spill stores, {info.get('spill_loads')} B spill loads")
 
     # phase 2: kernels vs plain versions
     fwd_err, fwd_timing = phase_kernels(fm, bw, flops)
@@ -828,6 +884,14 @@ def main():
     hfwd["launches_by_path"] = by_path("hash_encode_fwd")
     hbwd["launches_by_path"] = {**by_path(*bwd_names), "train_stochastic": tl[bwd_names[0]], "train_exact": tl[bwd_names[1]]}
     kernels = [fwd, bwd, adam, hfwd, hbwd]
+    for k in kernels:
+        k["ms_in_frame"] = profile["in_path"][k["name"]]["ms_per_launch"]
+        k["ms_in_step"] = train["profile"]["in_path"][k["name"]]["ms_per_launch"]
+    fwd["ptxas"] = ptxas.get("fused_mlp_fwd", {})
+    bwd["ptxas"] = ptxas.get("fused_mlp_bwd", {})
+    for k in kernels:
+        print(f"{k['name']}: {k['ms']:.4f} ms alone, {k['ms_in_frame']} ms a launch in the profiled frame, "
+              f"{k['ms_in_step']} ms a launch in the profiled train() call (bound {k['bound_ms']:.4f} ms)")
     shade1 = [f for f in frames if f["mode"] == "Shade" and f["spp"] == 1]
     serve = {
         "frame": list(FRAME),

@@ -6,231 +6,217 @@
 //   r    = relu(dens @ V0a + sh @ V0b)                        (split V0: no concat)
 //   r    = relu(r @ V_i) for each hidden rgb layer
 //   rgb  = r @ V_last
-// bf16 operands, fp32 accumulation, fp32 activations, hidden activations
-// re-cast to bf16 between layers (ngp_tpu/ops/mlp.py numerics).
+// bf16 operands (round to nearest even), fp32 sums, ReLU in fp32, bf16
+// between layers (ngp_tpu/ops/mlp.py numerics).
 //
-// Bound: at the render path's shape (N = 2^18 rows, default widths) the
-// kernel moves 268 B/row (enc 128 + sh 64 in, rgb 12 + dens 64 out) and does
-// 9,408 MAC/row; at 3.35 TB/s and 989 TFLOP/s that is ~21 us of traffic
-// against ~5 us of tensor-core work, so it is memory-bound. The design keeps
-// every intermediate out of device memory: all weights sit in shared memory
-// as bf16 (18.8 KB at default widths), loaded once per persistent CTA, and
-// each warp keeps its 16 rows' activations in shared memory through the
-// whole chain, so device memory sees only the inputs and outputs.
+// Bound: at the render path's shape (N = 2^18 rows, base.json widths) the
+// kernel moves 268 B a row (enc 128 + sh 64 in, rgb 12 + dens 64 out) and
+// does 9,408 MAC a row: ~21 us of traffic at 3.35 TB/s against ~5 us of
+// bf16 tensor-core work at 989 TFLOP/s, so bytes bound it, and the design
+// keeps every intermediate out of device memory and the loads in flight.
 //
-// Design (simple first version): a CTA of 8 warps owns 128-row tiles and
-// walks over them grid-stride. Each warp computes its own 16 rows layer by
-// layer with nvcuda::wmma 16x16x16 bf16 -> fp32 products; an n-tile's
-// accumulator goes through a 16x16 fp32 shared scratch where the epilogue
-// (ReLU, bf16 re-cast, or the fp32 output store) runs. Nothing is carried
-// between CTAs. The ragged last tile is masked on load and store.
-//
-// Dimensions arrive padded to multiples of 16 (the wrapper zero-pads the
-// weights, which is exact). Weights are one bf16 buffer of row-major (in, out)
-// matrices in the order
-//   W0 (d_in x wd), (nd - 2) x (wd x wd), W_last (wd x dd),
-//   V0a (dd x wr), V0b (d_sh x wr), (nr - 3) x (wr x wr), V_last (wr x 16)
-// with nd = density layers (>= 2) and nr = rgb layers after the V0 split (>= 3).
+// Design (register-resident, csrc/fused_mlp.cuh):
+// - activations stay in registers: each warp owns 16 rows, every layer is
+//   mma.sync.m16n8k16 on register fragments, and the epilogue (ReLU, bf16
+//   cast, repacking into the next A fragment) runs in registers; no
+//   activation touches shared memory between layers;
+// - the weights are copied once per persistent block into shared memory as
+//   bf16 with 16-byte row padding (ldmatrix without bank conflicts);
+// - inputs arrive by cp.async, 16 bytes a copy, into a per-warp double
+//   buffer: the next 16-row tile loads while this one computes; the ragged
+//   last tile is zero-filled by the copy and masked on store;
+// - dens is written from the accumulators with 8-byte stores, rgb (N, 3)
+//   with the row mask;
+// - templated on the bucket (largest padded width: 32, 64 or 128) so the
+//   register arrays have compile-time sizes;
+// - the launch plan (instantiation, grid, shared memory, the attribute) is
+//   computed once per set of dimensions and device by
+//   fused_mlp_fwd_plan; a launch is one call of fused_mlp_fwd.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+#include "fused_mlp.cuh"
 
 namespace {
 
-constexpr int kRowsPerWarp = 16;
+using namespace fmlp;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = kRowsPerWarp * kWarps;
-constexpr int kRgbOut = 3;
 
-struct Dims {
-  int n, d_in, d_sh, wd, wr, dd, nd, nr;
-};
+// floats of one staging buffer of a warp: 16 rows of enc and of sh
+__host__ __device__ inline int stage_floats(const Dims& d) { return kRows * (ld_stage(d.d_in) + ld_stage(d.d_sh)); }
 
-// One layer for a warp's 16 rows: for each 16-wide output tile j,
-// acc = a @ w[:, j] (+ a2 @ w2[:, j]); then epi(row, col, value) per element.
-template <typename Epi>
-__device__ __forceinline__ void warp_layer(const bf16* a, int k_dim, const bf16* w, int n_out,
-                                           const bf16* a2, int k2_dim, const bf16* w2,
-                                           float* scratch, int lane, Epi epi) {
-  for (int j = 0; j < n_out / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < k_dim / 16; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + k * 16, k_dim);
-      wmma::load_matrix_sync(fb, w + (size_t)k * 16 * n_out + j * 16, n_out);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    if (a2 != nullptr) {
-      for (int k = 0; k < k2_dim / 16; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a2 + k * 16, k2_dim);
-        wmma::load_matrix_sync(fb, w2 + (size_t)k * 16 * n_out + j * 16, n_out);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-    }
-    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) epi(e >> 4, j * 16 + (e & 15), scratch[e]);
-    __syncwarp();
-  }
+__host__ __device__ inline long long smem_bytes(const Dims& d) {
+  return 2 * smem_weight_elems(d) + 4LL * kWarps * 2 * stage_floats(d);
 }
 
-// fp32 rows [row0, row0 + 16) of a (n, cols) array -> bf16 shared rows;
-// rows past n read as zero
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int n, int cols, int row0,
-                                          bf16* dst, int lane) {
-  for (int e = lane; e < kRowsPerWarp * cols; e += 32) {
-    const int r = e / cols, c = e - r * cols;
-    const int row = row0 + r;
-    dst[e] = __float2bfloat16(row < n ? src[(size_t)row * cols + c] : 0.0f);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) fused_mlp_fwd_kernel(
-    const float* __restrict__ enc, const float* __restrict__ sh, const bf16* __restrict__ weights,
-    int w_elems, float* __restrict__ rgb_out, float* __restrict__ dens_out, Dims dm) {
+template <int WMAX>
+__global__ void __launch_bounds__(kThreads) fused_mlp_fwd_kernel(const float* __restrict__ enc,
+                                                                 const float* __restrict__ sh,
+                                                                 const bf16* __restrict__ weights,
+                                                                 float* __restrict__ rgb_out,
+                                                                 float* __restrict__ dens_out, Dims dm) {
+  constexpr int KT = WMAX / 16, NT = WMAX / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* w_s = reinterpret_cast<bf16*>(smem);
-
-  // weights -> shared, 16 bytes per thread per step (w_elems * 2 is a
-  // multiple of 512 bytes: every matrix is 16-multiple by 16-multiple)
-  {
-    const uint4* src = reinterpret_cast<const uint4*>(weights);
-    uint4* dst = reinterpret_cast<uint4*>(w_s);
-    const int n16 = w_elems / 8;
-    for (int i = threadIdx.x; i < n16; i += kThreads) dst[i] = src[i];
-  }
-
-  // weight matrix offsets, in buffer order
-  const bf16* w_d0 = w_s;
-  const bf16* w_dh = w_d0 + dm.d_in * dm.wd;
-  const bf16* w_dl = w_dh + (size_t)(dm.nd - 2) * dm.wd * dm.wd;
-  const bf16* v_0a = w_dl + dm.wd * dm.dd;
-  const bf16* v_0b = v_0a + dm.dd * dm.wr;
-  const bf16* v_h = v_0b + dm.d_sh * dm.wr;
-  const bf16* v_l = v_h + (size_t)(dm.nr - 3) * dm.wr * dm.wr;
-
-  // per-warp activation buffers after the weights
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int wmax = dm.d_in > dm.wd ? dm.d_in : dm.wd;
-  wmax = wmax > dm.wr ? wmax : dm.wr;
-  const int per_warp = 2 * kRowsPerWarp * wmax + kRowsPerWarp * dm.dd + kRowsPerWarp * dm.d_sh;  // bf16s
-  bf16* act0 = w_s + w_elems + (size_t)warp * (per_warp + 2 * 256);  // + 256 floats of scratch
-  bf16* act1 = act0 + kRowsPerWarp * wmax;
-  bf16* dens_b = act1 + kRowsPerWarp * wmax;
-  bf16* sh_b = dens_b + kRowsPerWarp * dm.dd;
-  float* scratch = reinterpret_cast<float*>(sh_b + kRowsPerWarp * dm.d_sh);
+  const int grp = lane >> 2, tig = lane & 3;
+  const int sf = stage_floats(dm);
+  float* stage = reinterpret_cast<float*>(w_s + smem_weight_elems(dm)) + (size_t)warp * 2 * sf;
+  const int ls_in = ld_stage(dm.d_in), ls_sh = ld_stage(dm.d_sh);
+  const int n = dm.n, dd = dm.dd, wd = dm.wd, wr = dm.wr;
 
-  __syncthreads();
+  load_weights(w_s, weights, dm);
 
-  const int n_tiles = (dm.n + kTileRows - 1) / kTileRows;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * kTileRows + warp * kRowsPerWarp;
-    if (row0 >= dm.n) continue;
+  const int n_tiles = (n + kRows - 1) / kRows;
+  const int step = gridDim.x * kWarps;
+  int tile = blockIdx.x * kWarps + warp;
+  auto stage_tile = [&](int t, int buf) {
+    float* s = stage + buf * sf;
+    stage_rows(s, ls_in, enc, dm.d_in, n, t * kRows, lane);
+    stage_rows(s + kRows * ls_in, ls_sh, sh, dm.d_sh, n, t * kRows, lane);
+  };
+  if (tile < n_tiles) stage_tile(tile, 0);
+  cp_async_commit();
+  __syncthreads();  // the weights
 
-    load_rows(enc, dm.n, dm.d_in, row0, act0, lane);
-    load_rows(sh, dm.n, dm.d_sh, row0, sh_b, lane);
+  // weight matrices in the shared copy (csrc/fused_mlp.cuh order)
+  const bf16* w_dh = w_s + dm.d_in * ld(wd);
+  const bf16* w_dl = w_dh + (size_t)(dm.nd - 2) * wd * ld(wd);
+  const bf16* v_0a = w_dl + wd * ld(dd);
+  const bf16* v_0b = v_0a + dd * ld(wr);
+  const bf16* v_h = v_0b + dm.d_sh * ld(wr);
+  const bf16* v_l = v_h + (size_t)(dm.nr - 3) * wr * ld(wr);
+
+  uint32_t a[KT][4];
+  float c[NT][4];
+  for (int buf = 0; tile < n_tiles; tile += step, buf ^= 1) {
+    if (tile + step < n_tiles) stage_tile(tile + step, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
     __syncwarp();
+    const float* s = stage + buf * sf;
+    const int row0 = tile * kRows;
 
-    // density head: hidden ReLU layers ping-pong between act0 and act1
-    bf16* in = act0;
-    bf16* out = act1;
+    // density head
+    stage_to_a(a, s, ls_in, dm.d_in, lane);
     int k_dim = dm.d_in;
-    const bf16* w = w_d0;
+    const bf16* w = w_s;
     for (int l = 0; l < dm.nd - 1; ++l) {
-      const int wd = dm.wd;
-      warp_layer(in, k_dim, w, wd, nullptr, 0, nullptr, scratch, lane,
-                 [&](int r, int c, float v) { out[r * wd + c] = __float2bfloat16(fmaxf(v, 0.0f)); });
-      bf16* t = in;
-      in = out;
-      out = t;
-      k_dim = dm.wd;
-      w = (l == 0) ? w_dh : w + (size_t)dm.wd * dm.wd;
+      zero(c);
+      layer_fwd(c, a, k_dim, w, ld(wd), wd, lane);
+      acc_to_a<Epi::kRelu>(a, c, wd);
+      w = (l == 0) ? w_dh : w + (size_t)wd * ld(wd);
+      k_dim = wd;
     }
-    // density output (no activation): fp32 to device memory, bf16 for V0a
-    {
-      const int dd = dm.dd, n = dm.n;
-      warp_layer(in, k_dim, w_dl, dd, nullptr, 0, nullptr, scratch, lane, [&](int r, int c, float v) {
-        dens_b[r * dd + c] = __float2bfloat16(v);
-        if (row0 + r < n) dens_out[(size_t)(row0 + r) * dd + c] = v;
-      });
-    }
-    __syncwarp();
-
-    // rgb head: relu(dens @ V0a + sh @ V0b), then the hidden layers
-    {
-      const int wr = dm.wr;
-      warp_layer(dens_b, dm.dd, v_0a, wr, sh_b, dm.d_sh, v_0b, scratch, lane,
-                 [&](int r, int c, float v) { out[r * wr + c] = __float2bfloat16(fmaxf(v, 0.0f)); });
-      bf16* t = in;
-      in = out;
-      out = t;
-      const bf16* v = v_h;
-      for (int l = 0; l < dm.nr - 3; ++l) {
-        warp_layer(in, wr, v, wr, nullptr, 0, nullptr, scratch, lane,
-                   [&](int r, int c, float x) { out[r * wr + c] = __float2bfloat16(fmaxf(x, 0.0f)); });
-        t = in;
-        in = out;
-        out = t;
-        v += (size_t)wr * wr;
+    zero(c);
+    layer_fwd(c, a, wd, w_dl, ld(dd), dd, lane);
+    // density output: fp32 to device memory from the accumulators
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j * 8 < dd) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + grp + 8 * h;
+          if (row < n)
+            *reinterpret_cast<float2*>(dens_out + (size_t)row * dd + j * 8 + 2 * tig) = make_float2(c[j][2 * h], c[j][2 * h + 1]);
+        }
       }
-      const int n = dm.n;
-      warp_layer(in, wr, v_l, 16, nullptr, 0, nullptr, scratch, lane, [&](int r, int c, float x) {
-        if (c < kRgbOut && row0 + r < n) rgb_out[(size_t)(row0 + r) * kRgbOut + c] = x;
-      });
+    }
+    acc_to_a<Epi::kNone>(a, c, dd);
+
+    // rgb head: relu(dens @ V0a + sh @ V0b), the hidden layers, V_last
+    zero(c);
+    layer_fwd(c, a, dd, v_0a, ld(wr), wr, lane);
+    stage_to_a(a, s + kRows * ls_in, ls_sh, dm.d_sh, lane);
+    layer_fwd(c, a, dm.d_sh, v_0b, ld(wr), wr, lane);
+    acc_to_a<Epi::kRelu>(a, c, wr);
+    __syncwarp();  // every lane has read this buffer: the next stage may overwrite it
+    const bf16* v = v_h;
+    for (int l = 0; l < dm.nr - 3; ++l) {
+      zero(c);
+      layer_fwd(c, a, wr, v, ld(wr), wr, lane);
+      acc_to_a<Epi::kRelu>(a, c, wr);
+      v += (size_t)wr * ld(wr);
+    }
+    zero(c);
+    layer_fwd(c, a, wr, v_l, ld(kRgbPad), kRgbPad, lane);
+    // rgb: columns 0-2 of the first n8 tile (lanes with tig 0 and 1)
+    if (tig < 2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + grp + 8 * h;
+        if (row < n) {
+          rgb_out[(size_t)row * kRgbOut + 2 * tig] = c[0][2 * h];
+          if (tig == 0) rgb_out[(size_t)row * kRgbOut + 1] = c[0][2 * h + 1];
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+}
+
+template <int WMAX>
+int plan_for(const Dims& dm, int* grid, int* smem) {
+  auto kernel = fused_mlp_fwd_kernel<WMAX>;
+  const long long bytes = smem_bytes(dm);
+  int device = 0, n_sms = 0, per_sm = 0, max_smem = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != cudaSuccess)
+    return (int)err;
+  *smem = (int)bytes;
+  if (bytes > max_smem) return -1;
+  // the attribute belongs to the instantiation, which plans of other widths
+  // share: allow the card's whole opt-in shared memory once
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, (int)bytes)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = n_sms * per_sm;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory bytes the kernel needs for these padded dimensions.
-long long fused_mlp_fwd_smem_bytes(int d_in, int d_sh, int wd, int wr, int dd, int nd, int nr) {
-  const long long w_elems = (long long)d_in * wd + (long long)(nd - 2) * wd * wd + (long long)wd * dd +
-                            (long long)dd * wr + (long long)d_sh * wr + (long long)(nr - 3) * wr * wr +
-                            (long long)wr * 16;
-  int wmax = d_in > wd ? d_in : wd;
-  wmax = wmax > wr ? wmax : wr;
-  const long long per_warp = 2LL * kRowsPerWarp * wmax + kRowsPerWarp * dd + kRowsPerWarp * d_sh + 2 * 256;
-  return 2 * (w_elems + kWarps * per_warp);
+// The launch plan of these padded dimensions on the current device: sets the
+// bucket's shared-memory attribute (to the card's opt-in maximum) and returns
+// the persistent grid (every SM filled at the kernel's occupancy) and the
+// dynamic shared memory; -1 when a block does not fit (*smem: what it needs).
+int fused_mlp_fwd_plan(int bucket, int d_in, int d_sh, int wd, int wr, int dd, int nd, int nr, int* grid, int* smem) {
+  const Dims dm{0, d_in, d_sh, wd, wr, dd, nd, nr};
+  switch (bucket) {
+    case 32: return plan_for<32>(dm, grid, smem);
+    case 64: return plan_for<64>(dm, grid, smem);
+    case 128: return plan_for<128>(dm, grid, smem);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches the kernel on `stream` with a plan from fused_mlp_fwd_plan;
+// returns cudaGetLastError() (0 = launched).
 int fused_mlp_fwd(const void* enc, const void* sh, const void* weights, void* rgb_out, void* dens_out, int n,
-                  int d_in, int d_sh, int wd, int wr, int dd, int nd, int nr, void* stream) {
+                  int d_in, int d_sh, int wd, int wr, int dd, int nd, int nr, int bucket, int grid, int smem,
+                  void* stream) {
   if (n <= 0) return 0;
   const Dims dm{n, d_in, d_sh, wd, wr, dd, nd, nr};
-  const int w_elems = d_in * wd + (nd - 2) * wd * wd + wd * dd + dd * wr + d_sh * wr + (nr - 3) * wr * wr + wr * 16;
-  const int smem = (int)fused_mlp_fwd_smem_bytes(d_in, d_sh, wd, wr, dd, nd, nr);
-
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, n_sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (n + kTileRows - 1) / kTileRows;
-  int grid = n_sms * per_sm;
-  if (grid > n_tiles) grid = n_tiles;
-
-  fused_mlp_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(enc), static_cast<const float*>(sh), static_cast<const bf16*>(weights), w_elems,
-      static_cast<float*>(rgb_out), static_cast<float*>(dens_out), dm);
+  const int n_tiles = (n + kRows * kWarps - 1) / (kRows * kWarps);
+  const int g = grid < n_tiles ? grid : n_tiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* e = static_cast<const float*>(enc);
+  const float* h = static_cast<const float*>(sh);
+  const bf16* w = static_cast<const bf16*>(weights);
+  float* r = static_cast<float*>(rgb_out);
+  float* o = static_cast<float*>(dens_out);
+  switch (bucket) {
+    case 32: fused_mlp_fwd_kernel<32><<<g, kThreads, smem, s>>>(e, h, w, r, o, dm); break;
+    case 64: fused_mlp_fwd_kernel<64><<<g, kThreads, smem, s>>>(e, h, w, r, o, dm); break;
+    case 128: fused_mlp_fwd_kernel<128><<<g, kThreads, smem, s>>>(e, h, w, r, o, dm); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

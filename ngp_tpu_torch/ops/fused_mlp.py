@@ -15,7 +15,10 @@ sequential grid `+=` has no CUDA counterpart).
 
 `fused_mlp_fwd` and `fused_mlp_bwd` launch their kernels for CUDA tensors
 and run the plain versions for CPU tensors; there is no other fallback.
-`fused_heads` wraps the pair in a torch.autograd.Function.
+`fused_heads` wraps the pair in a torch.autograd.Function. The kernels are
+instantiated per width bucket (`mlp_bucket`: 32, 64 or 128, the widest
+padded width); each set of padded widths gets one launch plan per device
+(bucket, grid, shared memory), computed at its first launch and cached.
 """
 
 import ctypes
@@ -32,7 +35,6 @@ from ngp_tpu_torch.ops.mlp import bf16_round
 N_LAUNCHES = 0  # fused_mlp_fwd
 N_LAUNCHES_BWD = 0  # fused_mlp_bwd
 
-MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 RGB_OUT = 3
 
 
@@ -63,7 +65,7 @@ def _pad16(x: int) -> int:
 @dataclass(frozen=True)
 class FusedWeights:
     """Both heads' weights, zero-padded to multiples of 16 and packed into one
-    bf16 buffer in the kernel's order (csrc/fused_mlp_fwd.cu header)."""
+    bf16 buffer in the kernels' order (csrc/fused_mlp.cuh header)."""
 
     packed: torch.Tensor  # (w_elems,) bf16
     d_in: int  # padded widths
@@ -226,26 +228,104 @@ def unpack_grads(fw: FusedWeights, flat: torch.Tensor):
 
 
 # ---------------------------------------------------------------- kernels
+BUCKETS = (32, 64, 128)  # the kernels' instantiations by largest padded width
+BWD_REG_SLOTS, BWD_REG_WARPS = 24, 4  # m16n8 tiles a warp (2 x kSlots pairs) and kRegWarps of csrc/fused_mlp_bwd.cu
+BWD_TILE_ROWS = 16  # rows a warp owns (a block's tile: 16 x warps rows)
+
+
+def mlp_bucket(fw: FusedWeights) -> int:
+    """The kernels' instantiation for these padded widths: the smallest
+    bucket that holds every width the heads pass between layers (register
+    arrays have compile-time sizes); raises above 128."""
+    widest = max(fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, 16)
+    for b in BUCKETS:
+        if widest <= b:
+            return b
+    raise ValueError(f"the fused MLP kernels take padded widths up to {BUCKETS[-1]}, got {widest}")
+
+
+def weight_tiles(fw: FusedWeights) -> int:
+    """m16n8 tiles of all weight gradients (the backward's units of work)."""
+    d_shapes, r_shapes = fw.shapes()
+    return sum((k // 16) * (n // 8) for k, n in d_shapes + r_shapes)
+
+
+def bwd_sums_in_registers(fw: FusedWeights) -> bool:
+    """Whether the backward keeps its weight-gradient sums in registers (the
+    32- and 64-wide buckets, up to BWD_REG_SLOTS tiles a warp) rather than in
+    shared memory (the 128-wide bucket, deeper heads)."""
+    return mlp_bucket(fw) <= 64 and weight_tiles(fw) <= BWD_REG_SLOTS * BWD_REG_WARPS
+
+
+def _dims(fw: FusedWeights):
+    return fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr
+
+
 def _fwd_library():
     lib = kernels.library("fused_mlp_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    p, i, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.fused_mlp_fwd.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
     lib.fused_mlp_fwd.restype = i
-    lib.fused_mlp_fwd_smem_bytes.argtypes = [i] * 7
-    lib.fused_mlp_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_mlp_fwd_plan.argtypes = [i] * 8 + [pi, pi]
+    lib.fused_mlp_fwd_plan.restype = i
     return lib
 
 
 def _bwd_library():
     lib = kernels.library("fused_mlp_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    p, i, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.fused_mlp_bwd.argtypes = [p] * 8 + [i] * 13 + [p]
     lib.fused_mlp_bwd.restype = i
-    lib.fused_mlp_bwd_smem_bytes.argtypes = [i] * 8
-    lib.fused_mlp_bwd_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_mlp_bwd_grid.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_int)]
-    lib.fused_mlp_bwd_grid.restype = i
+    lib.fused_mlp_bwd_plan.argtypes = [i] * 9 + [pi, pi, pi]
+    lib.fused_mlp_bwd_plan.restype = i
     return lib
+
+
+# launch plans by (padded dimensions, device index): computed once, so a
+# launch is one ctypes call
+_FWD_PLANS: dict = {}
+_BWD_PLANS: dict = {}
+
+
+def _fwd_plan(fw: FusedWeights, device):
+    """(lib, bucket, grid, shared memory bytes) of the forward kernel."""
+    key = (_dims(fw), device.index)
+    if key not in _FWD_PLANS:
+        lib = _fwd_library()
+        bucket = mlp_bucket(fw)
+        grid, got = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.fused_mlp_fwd_plan(bucket, *_dims(fw), ctypes.byref(grid), ctypes.byref(got))
+        if err == -1:
+            raise ValueError(f"fused MLP needs {got.value} B of shared memory, more than this card's block may use")
+        if err != 0:
+            raise RuntimeError(f"fused_mlp_fwd launch plan failed: CUDA error {err}")
+        _FWD_PLANS[key] = (lib, bucket, grid.value, got.value)
+    return _FWD_PLANS[key]
+
+
+def _bwd_plan(fw: FusedWeights, device):
+    """(lib, bucket, regs, warps, grid, shared memory bytes) of the backward
+    kernel: the register instantiation where it applies and fits, else the
+    shared-memory one; raises when no block fits in shared memory."""
+    key = (_dims(fw), device.index)
+    if key not in _BWD_PLANS:
+        lib = _bwd_library()
+        bucket = mlp_bucket(fw)
+        warps, grid, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        for regs in ((1, 0) if bwd_sums_in_registers(fw) else (0,)):
+            with torch.cuda.device(device):
+                err = lib.fused_mlp_bwd_plan(
+                    bucket, regs, *_dims(fw), ctypes.byref(warps), ctypes.byref(grid), ctypes.byref(smem)
+                )
+            if err == 0:
+                break
+        if err == -1:
+            raise ValueError(f"fused MLP backward needs {smem.value} B of shared memory, more than this card's block may use")
+        if err != 0:
+            raise RuntimeError(f"fused_mlp_bwd launch plan failed: CUDA error {err}")
+        _BWD_PLANS[key] = (lib, bucket, regs, warps.value, grid.value, smem.value)
+    return _BWD_PLANS[key]
 
 
 def _check(x: torch.Tensor, name: str, cols: int, device):
@@ -260,6 +340,13 @@ def _check_weights(fw: FusedWeights, device):
         raise ValueError("packed weights must be bf16 on the inputs' device")
 
 
+def _aligned(x: torch.Tensor, cols: int) -> torch.Tensor:
+    """x padded to `cols` columns, contiguous and 16-byte aligned (the
+    kernels copy rows 16 bytes at a time)."""
+    x = _pad_cols(x, cols).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def fused_mlp_fwd_cuda(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
     """Launch the forward kernel on the current stream: (rgb (N, 3), dens (N, dd))."""
     global N_LAUNCHES
@@ -269,21 +356,16 @@ def fused_mlp_fwd_cuda(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
     if sh.shape[0] != enc.shape[0]:
         raise ValueError("enc and sh must have the same number of rows")
     _check_weights(fw, device)
-    lib = _fwd_library()
-    smem = lib.fused_mlp_fwd_smem_bytes(fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused MLP needs {smem} B of shared memory, more than {MAX_SMEM_BYTES}")
+    lib, bucket, grid, smem = _fwd_plan(fw, device)
     n = enc.shape[0]
-    x = _pad_cols(enc, fw.d_in).contiguous()
-    s = _pad_cols(sh, fw.d_sh).contiguous()
     rgb = torch.empty((n, RGB_OUT), dtype=torch.float32, device=device)
     dens = torch.empty((n, fw.dd), dtype=torch.float32, device=device)
     if n == 0:
         return rgb, dens[:, : fw.dd_real]
+    x, s = _aligned(enc, fw.d_in), _aligned(sh, fw.d_sh)
     err = lib.fused_mlp_fwd(
         x.data_ptr(), s.data_ptr(), fw.packed.data_ptr(), rgb.data_ptr(), dens.data_ptr(),
-        n, fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr,
-        torch.cuda.current_stream(device).cuda_stream,
+        n, *_dims(fw), bucket, grid, smem, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: CUDA error {err}")
@@ -301,18 +383,6 @@ def fused_mlp_fwd(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
     raise ValueError(f"fused_mlp_fwd runs on cuda or cpu tensors, got {enc.device}")
 
 
-def bwd_warps(fw: FusedWeights) -> int:
-    """Warps per block the backward kernel takes for these widths: the most
-    rows per block (16 per warp, up to 8 warps) that fit in shared memory;
-    raises when even one warp's tile does not fit."""
-    lib = _bwd_library()
-    for warps in (8, 4, 2, 1):
-        smem = lib.fused_mlp_bwd_smem_bytes(fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr, warps)
-        if smem <= MAX_SMEM_BYTES:
-            return warps
-    raise ValueError(f"fused MLP backward needs {smem} B of shared memory at 16 rows, more than {MAX_SMEM_BYTES}")
-
-
 def fused_mlp_bwd_cuda(enc, sh, g_rgb, g_dens, fw: FusedWeights):
     """Launch the backward kernel (and its fixed-order reduction of the
     blocks' partial weight gradients) on the current stream."""
@@ -326,23 +396,19 @@ def fused_mlp_bwd_cuda(enc, sh, g_rgb, g_dens, fw: FusedWeights):
     if not sh.shape[0] == g_rgb.shape[0] == g_dens.shape[0] == n:
         raise ValueError("enc, sh, g_rgb and g_dens must have the same number of rows")
     _check_weights(fw, device)
-    lib = _bwd_library()
-    warps = bwd_warps(fw)
+    lib, bucket, regs, warps, max_grid, smem = _bwd_plan(fw, device)
     w_elems = fw.packed.numel()
     d_enc = torch.empty((n, fw.d_in), dtype=torch.float32, device=device)
     grads = torch.empty((w_elems,), dtype=torch.float32, device=device)
     if n == 0:
         return d_enc[:, : fw.d_in_real], grads.zero_()
-    grid = ctypes.c_int(0)
-    err = lib.fused_mlp_bwd_grid(n, fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr, warps, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd occupancy query failed: CUDA error {err}")
-    partial = torch.empty((grid.value, w_elems), dtype=torch.float32, device=device)
-    args = [_pad_cols(a, c).contiguous() for a, c in ((enc, fw.d_in), (sh, fw.d_sh), (g_rgb, RGB_OUT), (g_dens, fw.dd))]
+    rows = BWD_TILE_ROWS * warps
+    grid = min(max_grid, -(-n // rows))
+    partial = torch.empty((grid, w_elems), dtype=torch.float32, device=device)
+    args = [_aligned(a, c) for a, c in ((enc, fw.d_in), (sh, fw.d_sh), (g_rgb, RGB_OUT), (g_dens, fw.dd))]
     err = lib.fused_mlp_bwd(
         *(a.data_ptr() for a in args), fw.packed.data_ptr(), d_enc.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-        n, fw.d_in, fw.d_sh, fw.wd, fw.wr, fw.dd, fw.nd, fw.nr, warps, grid.value,
-        torch.cuda.current_stream(device).cuda_stream,
+        n, *_dims(fw), bucket, regs, warps, grid, smem, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: CUDA error {err}")

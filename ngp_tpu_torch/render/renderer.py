@@ -50,16 +50,29 @@ def camera_rays(cam: torch.Tensor, w: int, h: int, focal_length, principal_point
     f = torch.as_tensor(focal_length, dtype=torch.float32, device=dev)
     pp = torch.as_tensor(principal_point, dtype=torch.float32, device=dev)
     off = torch.as_tensor(off, dtype=torch.float32, device=dev)
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + off[0]) / w
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + off[1]) / h
+    # (i + off) / w - pp as XLA compiles it: the division by the constant
+    # becomes a product with float32(1 / w), contracted with the subtraction
+    # into one fused multiply-add (so the rays are ngp_tpu's to the bit)
+    xs = fma(torch.arange(w, dtype=torch.float32, device=dev) + off[0], 1.0 / w, -pp[0])
+    ys = fma(torch.arange(h, dtype=torch.float32, device=dev) + off[1], 1.0 / h, -pp[1])
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     gx, gy = gx.reshape(-1), gy.reshape(-1)
-    dcam = torch.stack([(gx - pp[0]) * w / f[0], (gy - pp[1]) * h / f[1], torch.ones_like(gx)], dim=-1)
+    dcam = torch.stack([gx * w / f[0], gy * h / f[1], torch.ones_like(gx)], dim=-1)
     d = dcam @ cam[:, :3].T
     # degenerate cameras give zero-length directions; keep them finite
     d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
     o = cam[:, 3].expand_as(d)
     return o, d
+
+
+def ray_start(aabb: AABB, o: torch.Tensor, d: torch.Tensor):
+    """Ray init (init_rays_with_payload_kernel_nerf): the march start t0 past
+    the near plane 0.05, and whether the ray is alive (that point lies in the
+    box). o + d * t0 is one fused multiply-add, as XLA compiles ngp_tpu's, so
+    rays that graze the box agree."""
+    tmin, _ = aabb.ray_intersect(o, d)
+    t0 = torch.clamp(tmin, min=0.05) + 1e-6
+    return t0, aabb.contains(fma(d, t0[:, None], o))
 
 
 @dataclass
@@ -116,11 +129,7 @@ class Renderer:
         off = ld_random_pixel_offset(0 if scfg.snap_to_pixel_centers_in_rendering else int(spp))
         o, d = camera_rays(cam, w, h, focal_length, principal_point, off.tolist())
 
-        # ray init (init_rays_with_payload_kernel_nerf): near plane 0.05,
-        # per-spp low-discrepancy jitter of the march start
-        tmin, _ = aabb.ray_intersect(o, d)
-        t0 = torch.clamp(tmin, min=0.05) + 1e-6
-        alive = aabb.contains(o + d * t0[:, None])
+        t0, alive = ray_start(aabb, o, d)
         seed = (torch.arange(n, dtype=torch.int64, device=dev) * 786433) & 0xFFFFFFFF
         startt = fma(ld_random_val(int(spp), seed), dt, t0)
         dirs_w = (d + 1.0) * 0.5

@@ -41,7 +41,23 @@ def _weights(gen, n_in, width, n_out, hidden, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,d_hidden,r_hidden,width,d_in,d_sh",
-    [(2**16 + 37, 1, 2, 64, 32, 16), (1000, 3, 3, 16, 32, 16), (4096, 1, 2, 128, 32, 16), (777, 2, 2, 40, 24, 9), (5, 1, 1, 64, 32, 16)],
+    [
+        (2**16 + 37, 1, 2, 64, 32, 16),
+        (1000, 3, 3, 16, 32, 16),
+        (4096, 1, 2, 128, 32, 16),
+        (777, 2, 2, 40, 24, 9),
+        (5, 1, 1, 64, 32, 16),
+        # each bucket's edges (padded widths 32, 48, 64, 80, 128) at a 128-row
+        # block tile and one row either side of it, N = 1, deep heads (nd + nr >= 8)
+        (2047, 1, 2, 32, 32, 16),
+        (2048, 1, 2, 48, 32, 16),
+        (2049, 1, 2, 64, 32, 16),
+        (4097, 1, 2, 80, 32, 16),
+        (4095, 1, 2, 128, 32, 16),
+        (1, 1, 2, 64, 32, 16),
+        (3000, 4, 3, 64, 32, 16),
+        (1000, 4, 4, 32, 24, 9),
+    ],
 )
 def test_fused_mlp_kernel_matches_plain(card, n, d_hidden, r_hidden, width, d_in, d_sh):
     from ngp_tpu_torch.ops import fused_mlp as fm
@@ -121,7 +137,17 @@ BWD_RTOL, BWD_ATOL = 3e-2, 3e-2
         (4096, 1, 2, 128),
         (5, 1, 1, 64),
         (777, 2, 2, 40),
-        (641, 1, 2, 64),  # one row past five 128-row tiles
+        (641, 1, 2, 64),  # one row past ten 64-row tiles
+        # each bucket's edges at a 64-row block tile and one row either side
+        # of it, N = 1, deep heads (nd + nr >= 8) in the register bucket (32
+        # wide) and with the sums in shared memory (64 wide)
+        (4095, 1, 2, 32),
+        (4096, 1, 2, 48),
+        (4097, 1, 2, 80),
+        (4097, 1, 2, 128),
+        (1, 1, 2, 64),
+        (2000, 4, 3, 32),
+        (3000, 4, 3, 64),
     ],
 )
 def test_fused_mlp_bwd_kernel_matches_plain(card, n, d_hidden, r_hidden, width):

@@ -111,3 +111,39 @@ def test_supports_gate():
     for doc in ({}, {"network": {"network": {"activation": "Tanh"}}}, {"network": {"rgb_network": {"n_neurons": 256}}}):
         a, b = JCfg.from_json(doc).network, TCfg.from_json(doc).network
         assert t_fused.supports(b.density_mlp, b.rgb_mlp) == j_supports(a.density_mlp, a.rgb_mlp)
+
+
+def _fw(width, hidden, d_in=32, d_sh=16):
+    return t_fused.pack_weights(
+        [torch.zeros(d_in, width)] + [torch.zeros(width, width)] * (hidden - 1) + [torch.zeros(width, 16)],
+        [torch.zeros(16 + d_sh, width)] + [torch.zeros(width, width)] * (hidden - 1) + [torch.zeros(width, 3)],
+    )
+
+
+@pytest.mark.parametrize("hidden", [1, 2, 3, 4])
+@pytest.mark.parametrize("width", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_kernel_bucket_and_weight_tiles(width, hidden):
+    """The kernels' instantiation is the smallest of 32, 64 and 128 that holds
+    every padded width (enc's 32 included), and the backward keeps its sums
+    in registers only in the 32- and 64-wide buckets with at most 24 x 4
+    m16n8 weight-gradient tiles."""
+    fw = _fw(width, hidden)
+    assert t_fused.mlp_bucket(fw) == (32 if width <= 32 else 64 if width <= 64 else 128)
+    d = [(32, width)] + [(width, width)] * (hidden - 1) + [(width, 16)]
+    r = [(16, width), (16, width)] + [(width, width)] * (hidden - 1) + [(width, 16)]
+    tiles = sum((k // 16) * (n // 8) for k, n in d + r)
+    assert t_fused.weight_tiles(fw) == tiles
+    assert t_fused.bwd_sums_in_registers(fw) == (width <= 64 and tiles <= 96)
+
+
+def test_kernel_bucket_rejects_widths_above_128():
+    # base.json widths (64 wide; 1 density, 2 rgb hidden layers): 80 tiles in registers
+    base = t_fused.pack_weights(
+        [torch.zeros(32, 64), torch.zeros(64, 16)], [torch.zeros(32, 64), torch.zeros(64, 64), torch.zeros(64, 3)]
+    )
+    assert (t_fused.mlp_bucket(base), t_fused.weight_tiles(base), t_fused.bwd_sums_in_registers(base)) == (64, 80, True)
+    assert t_fused.mlp_bucket(_fw(64, 1, d_in=128)) == 128
+    with pytest.raises(ValueError, match="128"):
+        t_fused.mlp_bucket(_fw(64, 1, d_in=144))
+    with pytest.raises(ValueError, match="128"):
+        t_fused.mlp_bucket(_fw(64, 1, d_sh=130))

@@ -1,11 +1,13 @@
 """Port parity for the serving path: the lattice march (exact sample counts)
 and whole frames rendered from one ngp_tpu snapshot by both packages."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ngp_tpu.render.renderer import _rays_slab_pass as j_rays_slab_pass
 from ngp_tpu.sampling.lattice import count_samples as j_count_samples
 from ngp_tpu.sampling.lattice import n_lattice_points as j_n_lattice_points
 from ngp_tpu.testbed import Testbed as JTestbed
@@ -13,6 +15,8 @@ from ngp_tpu.utils.aabb import AABB as JAABB
 from ngp_tpu.utils.config import NGPConfig as JCfg
 from ngp_tpu_torch import Testbed as TTestbed
 from ngp_tpu_torch.render.buffer import accumulate
+from ngp_tpu_torch.render.renderer import camera_rays as t_camera_rays
+from ngp_tpu_torch.render.renderer import ray_start as t_ray_start_alive
 from ngp_tpu_torch.sampling import lattice as t_lattice
 from ngp_tpu_torch.utils.aabb import AABB as TAABB
 from ngp_tpu_torch.utils.config import NGPConfig as TCfg
@@ -158,12 +162,13 @@ def _render_both(path, mode, spp, theta):
 # counts are equal, so its frame is too). Normals differentiates the
 # density head through the bf16 MLP and the hash encoding's trilinear
 # derivative in both packages, in another order of fp32 sums: measured max
-# 5.1e-6 and mean 5.7e-8, allowed 5e-5 and 1e-6. (At theta 3.5 one pixel's
-# opacity differs by 1.1e-3 in every mode, Shade included: ROADMAP queue 3.)
+# 5.1e-6 and mean 5.7e-8, allowed 5e-5 and 1e-6. Theta 3.5 holds a pixel
+# whose ray direction once differed from ngp_tpu's by an ulp (camera_rays).
 @pytest.mark.parametrize(
     "mode,spp,theta,max_abs,mean_abs",
     [
         ("Shade", 1, 0.3, 1e-5, 1e-6),
+        ("Shade", 1, 3.5, 1e-5, 1e-6),
         ("Shade", 2, 2.1, 2e-2, 1e-3),
         ("Depth", 1, 4.0, 1e-5, 1e-6),
         ("AO", 1, 0.7, 1e-5, 1e-6),
@@ -183,6 +188,50 @@ def test_snapshot_renders_match(snapshot, mode, spp, theta, max_abs, mean_abs):
         err = np.abs(a - b)
         assert err.max() <= max_abs, f"max abs {err.max()}"
         assert err.mean() <= mean_abs, f"mean abs {err.mean()}"
+
+
+@pytest.mark.parametrize("w,h,theta", [(32, 24, 3.5), (37, 53, 0.3), (100, 75, 5.0)])
+def test_camera_rays_equal_jax_bitwise(w, h, theta):
+    """The port's pixel-grid rays are ngp_tpu's (_rays_slab_pass) to the bit:
+    XLA divides by the constant width as a product with its float32
+    reciprocal, contracted with the principal-point subtraction."""
+    cam = ring_pose(theta)
+    f, pp, off = (h * 0.9, h * 1.1), (0.5, 0.47), (0.5, 0.5)
+    o_j, d_j, *_ = j_rays_slab_pass(
+        jnp.asarray(cam), jnp.asarray(np.float32(f)), jnp.asarray(np.float32(pp)), jnp.asarray(np.float32(off)),
+        jnp.asarray(np.float32([[0, 0, 0], [1, 1, 1]])), w=w, h=h, aabb_scale=1, dt=0.01, n_lat=1024, grid_size=128,
+    )
+    o, d = t_camera_rays(torch.from_numpy(cam), w, h, f, pp, off)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(o_j))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_j))
+
+
+def test_ray_start_alive_equals_jax_on_grazing_rays():
+    """The march-start test aabb.contains(o + d * t0) of ngp_tpu's
+    _render_tile_impl, compiled by XLA with a fused multiply-add, on rays aimed
+    at the box's edges: the port's alive mask is the same."""
+    rng = np.random.default_rng(3)
+    n = 4096
+    tgt = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    a = rng.integers(0, 3, n)
+    rows = np.arange(n)
+    tgt[rows, a] = rng.choice([0.0, 1.0], n)
+    tgt[rows, (a + 1) % 3] = rng.choice([0.0, 1.0], n)
+    o = (tgt + rng.normal(size=(n, 3)) * 1.5).astype(np.float32)
+    d = tgt - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    box = JAABB.scene(1.0)
+
+    @jax.jit
+    def j_alive(o, d):  # ngp_tpu/render/renderer.py:131-133
+        tmin, _ = box.ray_intersect(o, d)
+        t0 = jnp.maximum(tmin, 0.05) + 1e-6
+        return box.contains(o + d * t0[:, None])
+
+    ref = np.asarray(j_alive(jnp.asarray(o), jnp.asarray(d)))
+    got = t_ray_start_alive(TAABB.scene(1.0), torch.from_numpy(o), torch.from_numpy(d))[1]
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < ref.sum() < n
 
 
 def test_multi_pass_is_accumulate_of_passes(snapshot):
