@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit; build every kernel of the port
      from the sources in the checkout (one nvcc per csrc/*.cu, all started
      together, sm_90a) and print the registers, stack and spills ptxas
-     reports for each instantiation of the two fused MLP kernels;
+     reports for each instantiation of every kernel;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (fused_mlp_fwd and fused_mlp_bwd on KERNEL_CASES,
      adam_ema on the base.json hash table, hash_encode_fwd and both entries
@@ -29,7 +29,12 @@ Phases, in order; any failure exits non-zero:
      and read just after (each kernel must have launched); one more call is
      profiled; a held-out view must beat PSNR_FLOOR; one train() call of a
      small config on the card and on the CPU, from the same state and draws,
-     must give the same loss within TRAIN_REF_RTOL;
+     must give the same loss within TRAIN_REF_RTOL; then hash_encode_fwd and
+     the stochastic hash_encode_bwd are held against their plain versions
+     and timed on path-shaped positions: one network batch of an 800x800
+     Shade frame and one train(1, 2**18) step's batch, both captured by
+     wrapping the kernels' wrappers, with each set's distinct (level, row)
+     pairs and bounds beside the uniform case's;
   5. print each kernel's time alone beside its device time per launch inside
      the profiled serve frame and train() call; print one {"kernels": [...]}
      line, one {"serve": {...}} line, one {"train": {...}} line, and as the
@@ -627,33 +632,118 @@ def phase_hash_kernels(he, bw, fp32_flops):
 
         if timing:
             continue
-        # bounds (bytes: each input read once, each output written once)
-        u_rows = torch.unique(he.corner_rows(pos, spec)).numel()  # distinct (level, row) pairs the gather needs
-        kr = he.level_rate(spec, n)
-        grad_bytes = 4 * L * T * F
+        work = hash_work(he, spec, pos)
         cases = {
-            "fwd": (lambda: he.hash_encode_cuda(table, pos, spec), lambda: he.hash_encode_plain(table, pos, spec),
-                    12 * n + 4 * F * u_rows + 4 * L * F * n, (HASH_CELL_OPS + 8 * (2 + 2 * F)) * L * n),
-            "stochastic": (lambda: he.hash_bwd_oadd_stochastic_cuda(pos, spec, g), lambda: he.hash_bwd_oadd_stochastic_plain(pos, spec, g),
-                           12 * n + 4 * L * F * n // kr + grad_bytes, (HASH_CELL_OPS + 12 + F) * L * n // kr),
-            "exact": (lambda: he.hash_bwd_oadd_cuda(pos, spec, g), lambda: he.hash_bwd_oadd_plain(pos, spec, g),
-                      12 * n + 4 * L * F * n + grad_bytes, (HASH_CELL_OPS + 8 * (2 + F)) * L * n),
+            "fwd": (lambda: he.hash_encode_cuda(table, pos, spec), lambda: he.hash_encode_plain(table, pos, spec)),
+            "stochastic": (lambda: he.hash_bwd_oadd_stochastic_cuda(pos, spec, g), lambda: he.hash_bwd_oadd_stochastic_plain(pos, spec, g)),
+            "exact": (lambda: he.hash_bwd_oadd_cuda(pos, spec, g), lambda: he.hash_bwd_oadd_plain(pos, spec, g)),
         }
-        for key, (kern, plain, n_bytes, n_ops) in cases.items():
-            t_bytes, t_ops = n_bytes / bw, n_ops / fp32_flops
+        for key, (kern, plain) in cases.items():
             timing[key] = {
                 "ms": cuda_ms(kern),
                 "plain_ms": cuda_ms(plain),
                 "library_ms": None,  # no single PyTorch call computes the hash encoding or its deposits
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": n_bytes,
-                "fp32_ops": n_ops,
+                **bound(*work[key], bw, fp32_flops),
             }
-        timing["fwd"]["distinct_rows"] = u_rows
-        timing["stochastic"]["level_rate"] = kr
-        print(f"hash kernels timing at N={HASH_CASES[0][2]} (base.json): {timing}")
+        timing["fwd"]["distinct_rows"] = work["distinct_rows"]
+        timing["stochastic"]["distinct_rows"] = work["distinct_deposit_rows"]
+        timing["stochastic"]["level_rate"] = work["level_rate"]
+        print(f"hash kernels timing at N={HASH_CASES[0][2]} (base.json, uniform positions): {timing}")
     return worst, timing
+
+
+def bound(n_bytes, n_ops, bw, fp32_flops) -> dict:
+    """The least time of the work: its bytes over the memory rate or its fp32
+    operations over the fp32 rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / bw, n_ops / fp32_flops
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "fp32_ops": n_ops}
+
+
+def hash_work(he, spec, pos) -> dict:
+    """(bytes, fp32 operations) that the gather and the two deposits of
+    `spec` need on these positions (each input read once, each output
+    written once), and the distinct (level, row) pairs behind them: the
+    gather reads each row its corners touch once; the stochastic deposit
+    writes the whole (L, T_pad, F) gradient, whatever rows it adds into."""
+    n = pos.shape[0]
+    L, T, F = spec.n_levels, spec.padded_size, spec.n_features
+    u_rows = torch.unique(he.corner_rows(pos, spec)).numel()
+    kr = he.level_rate(spec, n)
+    ones = torch.ones((n, L * F), device=pos.device)  # every deposit positive: its row is nonzero
+    u_dep = int((he.hash_bwd_oadd_stochastic_plain(pos, spec, ones) != 0).any(-1).sum())
+    grad_bytes = 4 * L * T * F
+    return {
+        "fwd": (12 * n + 4 * F * u_rows + 4 * L * F * n, (HASH_CELL_OPS + 8 * (2 + 2 * F)) * L * n),
+        "stochastic": (12 * n + 4 * L * F * n // kr + grad_bytes, (HASH_CELL_OPS + 12 + F) * L * n // kr),
+        "exact": (12 * n + 4 * L * F * n + grad_bytes, (HASH_CELL_OPS + 8 * (2 + F)) * L * n),
+        "distinct_rows": u_rows,
+        "distinct_deposit_rows": u_dep,
+        "level_rate": kr,
+    }
+
+
+def capture_positions(he, name: str, n: int, run) -> list:
+    """Clones of the positions of every call of the wrapper he.<name> with n
+    rows while run() runs. The capture calls the wrapper it replaces, which
+    launches and counts as before."""
+    orig = getattr(he, name)
+    seen = []
+
+    def capture(*args):
+        pos = args[1] if name.startswith("hash_encode") else args[0]  # (table, pos, spec) or (pos, spec, g)
+        if pos.shape[0] == n:
+            seen.append(pos.clone())
+        return orig(*args)
+
+    setattr(he, name, capture)
+    try:
+        run()
+    finally:
+        setattr(he, name, orig)
+    return seen
+
+
+def phase_path_hash(he, bw, fp32_flops, batches: dict, uniform: dict):
+    """hash_encode_fwd and the stochastic hash_encode_bwd on the positions the
+    main paths feed them (`batches`: label -> (N, 3) on the card, captured
+    from a served frame and a training step): held against their plain
+    versions as on HASH_CASES and timed, with each set's distinct rows and
+    bounds printed beside the uniform case's (`uniform`, phase_hash_kernels'
+    timing)."""
+    spec = hash_spec("base")
+    L, T, F = spec.n_levels, spec.padded_size, spec.n_features
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = torch.rand((L, T, F), generator=gen, device="cuda") * 2.0 - 1.0
+    worst = 0.0  # the gather's largest error (the deposit must be bit-equal)
+    out = {key: {"uniform": {k: uniform[key][k] for k in ("ms", "bound_ms", "bound_by", "bytes", "fp32_ops", "distinct_rows")}}
+           for key in ("fwd", "stochastic")}
+    for label, pos in batches.items():
+        n = pos.shape[0]
+        err = (he.hash_encode_cuda(table, pos, spec) - he.hash_encode_plain(table, pos, spec)).abs().max().item()
+        ok = err <= HASH_FWD_ATOL
+        print(f"hash_encode_fwd {label}: N={n} max_abs_err={err:.3e} (atol {HASH_FWD_ATOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"hash_encode_fwd disagrees with its plain version ({label})")
+        worst = max(worst, err)
+        g = torch.randint(-8, 9, (n, L * F), generator=gen, device="cuda").float() * 2.0**-8  # exact sums
+        for rate in (2, 1):
+            sp = dataclasses.replace(spec, stochastic_level_rate=rate)
+            same = torch.equal(he.hash_bwd_oadd_stochastic_cuda(pos, sp, g), he.hash_bwd_oadd_stochastic_plain(pos, sp, g))
+            print(f"hash_encode_bwd stochastic {label}: N={n} rate {rate} bit-equal: {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"the stochastic hash_encode_bwd differs from its plain version ({label}, rate {rate})")
+        work = hash_work(he, spec, pos)
+        runs = {"fwd": lambda: he.hash_encode_cuda(table, pos, spec),
+                "stochastic": lambda: he.hash_bwd_oadd_stochastic_cuda(pos, spec, g)}
+        rows = {"fwd": work["distinct_rows"], "stochastic": work["distinct_deposit_rows"]}
+        for key, run in runs.items():
+            out[key][label] = {"ms": cuda_ms(run), **bound(*work[key], bw, fp32_flops), "distinct_rows": rows[key]}
+    for key, name in (("fwd", "hash_encode_fwd"), ("stochastic", "hash_encode_bwd stochastic")):
+        for label, r in out[key].items():
+            print(f"{name} on {label} positions: {r['distinct_rows']} distinct (level, row) pairs, {r['bytes'] / 1e6:.2f} MB, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), {r['ms']:.4f} ms alone")
+    return worst, out
 
 
 def psnr_view(tb, test_json, i, width, height):
@@ -731,7 +821,7 @@ def phase_train(Testbed):
     print(f"held-out view 0 at {w}x{h}: PSNR {psnr:.2f} dB (floor {PSNR_FLOOR})")
     if not psnr > PSNR_FLOOR:
         raise SystemExit(f"held-out PSNR {psnr:.2f} dB is below the floor of {PSNR_FLOOR} dB")
-    return {
+    return tb, {
         "config": BASE_JSON,
         "scene": SCENE,
         "scene_write_s": scene_s,
@@ -807,6 +897,7 @@ def main():
     from ngp_tpu_torch.ops import hash_encoding as he
     from ngp_tpu_torch.ops import kernels as kb
     from ngp_tpu_torch.ops.mlp import exact_fp32_matmul
+    from ngp_tpu_torch.render.renderer import EVAL_BATCH
     from ngp_tpu_torch.train import optimizer as opt
 
     exact_fp32_matmul()
@@ -823,7 +914,7 @@ def main():
     for src, log in kb.BUILD_LOGS.items():
         print(f"--- {src}.cu\n{log.strip()}")
     ptxas = {src: ptxas_summary(log) for src, log in kb.BUILD_LOGS.items()}
-    for src in ("fused_mlp_fwd", "fused_mlp_bwd"):
+    for src in kb.SOURCES:
         for inst, info in ptxas.get(src, {}).items():
             print(f"ptxas {inst}: {info.get('registers')} registers, {info.get('stack')} B stack, "
                   f"{info.get('spill_stores')} B spill stores, {info.get('spill_loads')} B spill loads")
@@ -839,15 +930,27 @@ def main():
     t = time.perf_counter()
     tb, frames, serve_launches, n_passes, peak_gib = phase_serve(Testbed, NGPModel)
     profile = phase_profile(tb, frames[len(POSES) - 1]["ms"])
+    # the positions of one network batch of an 800x800 Shade frame (the
+    # profiled view), for the path-shaped hash timing of phase 4
+    w, h = FRAME
+    frame_batches = capture_positions(he, "hash_encode_cuda", EVAL_BATCH, lambda: tb.render(w, h, spp=1, to_srgb=False))
+    print(f"captured {len(frame_batches)} network batches of {EVAL_BATCH} samples from one {w}x{h} Shade frame")
     del tb
     reference = phase_reference(Testbed, NGPModel)
     print(f"serve phase {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: train
     t = time.perf_counter()
-    train = phase_train(Testbed)
+    train_tb, train = phase_train(Testbed)
+    # the positions of one train(1, 2**18) step's batch (the deposit's N)
+    train_batches = capture_positions(he, "hash_bwd_oadd_stochastic_cuda", TRAIN_BATCH, lambda: train_tb.train(1, TRAIN_BATCH))
+    del train_tb
     train["reference"] = phase_train_reference(Testbed, NGPModel)
     train["card"] = card
+    path_fwd_err, path_hash = phase_path_hash(
+        he, bw, fp32_flops, {"frame_batch": frame_batches[len(frame_batches) // 2], "train_batch": train_batches[0]}, hash_timing
+    )
+    del frame_batches, train_batches
     print(f"train phase {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: results; `launches` counts the training path (the last
@@ -868,7 +971,7 @@ def main():
         "tools/microbench.py:29; tools/microbench.py:54; tools/microbench.py:94; tools/microbench.py:123; "
         "tools/microbench.py:428; tools/mb23_mosaic_gather.py:53; tools/mb23_mosaic_gather.py:77; "
         "tools/mb23_mosaic_gather.py:114",
-        tl["hash_encode_fwd"], hash_err["fwd"], hash_timing["fwd"],
+        tl["hash_encode_fwd"], max(hash_err["fwd"], path_fwd_err), hash_timing["fwd"],
     )
     bwd_names = ("hash_encode_bwd_stochastic", "hash_encode_bwd_exact")
     hbwd = kernel_entry(
@@ -876,6 +979,8 @@ def main():
         sum(tl[k] for k in bwd_names), hash_err["stochastic"], hash_timing["stochastic"],
     )
     ex = hash_timing["exact"]
+    hfwd["path_shaped"] = path_hash["fwd"]
+    hbwd["path_shaped"] = path_hash["stochastic"]
     hbwd["exact"] = {"ms": ex["ms"], "plain_ms": ex["plain_ms"], "bound_ms": ex["bound_ms"], "bound_by": ex["bound_by"],
                      "library_ms": None, "max_abs_err": hash_err["exact"]}
     fwd["launches_by_path"] = by_path("fused_mlp_fwd")

@@ -23,21 +23,43 @@
 // per sample and level, over kr for the stochastic draw) and the whole
 // (L, T_pad, F) gradient written once (67 MB at base.json's size, which the
 // zero fill already costs). What the kernel really does is 8*L*N (exact) or
-// L*N/kr (stochastic) pairs of fp32 atomic adds, which run in the L2.
+// L*N/kr (stochastic) fp32 atomic adds of F floats, which run in the L2.
 //
-// Design (simple first version): one thread per (sample, level); blockIdx.y
-// is the level, so the blocks in flight add into one or two levels' rows
-// (at most 4 MB a level at base.json's size) and the atomics stay in the
-// 50 MB L2. Each feature is one scalar atomicAdd (a reduction: nothing is
-// read back). The order in which the adds land is not fixed, as with
-// index_add_ on the card: sums of values that are not exact in fp32 differ
-// from run to run in their last bits.
+// Design of the exact entry (simple first version): one thread per
+// (sample, level); blockIdx.y is the level, so the blocks in flight add into
+// one or two levels' rows (at most 4 MB a level at base.json's size) and the
+// atomics stay in the 50 MB L2; one scalar atomicAdd a feature.
+//
+// Design of the stochastic entry:
+// - Level groups, as the gather (hash_grid.cuh): a block takes 256
+//   consecutive samples and 8 / F levels, blockIdx.y the group, so the
+//   atomics in flight land in one group's rows (at most 4 levels x 4 MB at
+//   base.json's size). Each thread takes one sample over the group's levels
+//   it feeds (l % kr == n % kr); its position is staged once per group, and
+//   g's (sample, group) sector is read whole by coalesced loads (a thread
+//   per (sample, level) would read 8 bytes 128 bytes apart).
+// - Warp-merged deposits: a training batch is ray-major, so at the coarse
+//   levels many lanes of a warp deposit into the same row, and their
+//   atomics serialise on it in the L2. Lanes with the same (level, row) find
+//   each other with __match_any_sync on the 32-bit key l * T_pad + row, sum
+//   their kr * g by shuffles (pointer jumping along the group's lanes in
+//   lane order: log2 of the group's size steps, none where every row is
+//   distinct), and the group's lowest lane adds the sum.
+// - One vector reduction a deposit: atomicAdd on a float2 at F = 2 (float4
+//   at F = 4 and 8; Hopper's vector atomics on global memory), a float at F = 1.
+// Both entries are reductions (nothing is read back). The order in which the
+// adds land is not fixed, as with index_add_ on the card: sums of values that
+// are not exact in fp32 differ from run to run in their last bits; on
+// dyadic g every partial sum is exact and the result is bit-equal to the
+// plain version.
 
 #include "hash_grid.cuh"
 
 namespace {
 
 using hash_grid::LevelConstants;
+using hash_grid::kBlock;
+using hash_grid::kStride;
 
 template <int F>
 __global__ void __launch_bounds__(256) hash_bwd_exact_kernel(const float* __restrict__ pos,
@@ -64,33 +86,103 @@ constexpr uint32_t kPosMulX = 0x9E3779B1u, kPosMulY = 0x85EBCA77u, kPosMulZ = 0x
 constexpr uint32_t kLevelSalt = 0x27D4EB2Fu;
 constexpr uint32_t kMix = 0x2C1B3C6Du;
 
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+// Add v (F floats) into row `key` of d (the flat (L * T_pad, F) gradient)
+// once for each group of the warp's lanes with the same key: the group's
+// values are summed by shuffles and its lowest lane adds the sum. Every lane
+// of the warp calls this together; an inactive lane deposits nothing.
 template <int F>
-__global__ void __launch_bounds__(256) hash_bwd_stochastic_kernel(const float* __restrict__ pos,
-                                                                  const float* __restrict__ g,
-                                                                  float* __restrict__ d, long long m, int kr,
-                                                                  long long t_pad, LevelConstants lc) {
-  const long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const int l = blockIdx.y;
-  const long long i = j * kr + l % kr;  // the slot of its group of kr that feeds level l
-  const float* p = pos + 3 * i;
-  const hash_grid::Cell c = hash_grid::locate(p, l, lc);
-  uint32_t h = (__float_as_uint(p[0]) * kPosMulX) ^ (__float_as_uint(p[1]) * kPosMulY) ^
-               (__float_as_uint(p[2]) * kPosMulZ);
-  h ^= (uint32_t)(l + 1) * kLevelSalt;
-  int k = 0;
+__device__ __forceinline__ void deposit_merged(float* __restrict__ d, uint32_t key, bool active, float (&v)[F]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFullWarp, key);
+  // pointer jumping: nxt is the group's next lane above this one; after step
+  // s, v sums this lane and the 2^(s+1) - 1 lanes after it in the group
+  int nxt = active ? __ffs(peers & (0xFFFFFFFEu << lane)) - 1 : -1;
+  while (__any_sync(kFullWarp, nxt >= 0)) {
+    const int src = nxt >= 0 ? nxt : lane;
+    float o[F];
 #pragma unroll
-  for (int dim = 0; dim < 3; ++dim) {  // one independent 24-bit uniform per dimension
-    h = (h ^ (h >> 15)) * kMix;
-    const float u = (float)(h >> 8) * 0x1p-24f;  // exact: h >> 8 < 2^24
-    k |= (u >= c.w0[dim] ? 1 : 0) << dim;
+    for (int f = 0; f < F; ++f) o[f] = __shfl_sync(kFullWarp, v[f], src);
+    const int onxt = __shfl_sync(kFullWarp, nxt, src);
+    if (nxt >= 0) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[f] = __fadd_rn(v[f], o[f]);
+      nxt = onxt;
+    }
   }
-  float gv[F];
-  hash_grid::load_row<F>(g + (i * lc.n_levels + l) * F, gv);
-  float* row = d + ((long long)l * t_pad + hash_grid::corner_row(c, l, k, lc)) * F;
-  const float scale = (float)kr;
+  if (!active || lane != __ffs(peers) - 1) return;
+  float* dst = d + (size_t)key * F;
+  if constexpr (F == 1) {
+    atomicAdd(dst, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
 #pragma unroll
-  for (int f = 0; f < F; ++f) atomicAdd(row + f, kr > 1 ? __fmul_rn(gv[f], scale) : gv[f]);
+    for (int j = 0; j < F; j += 4) atomicAdd(reinterpret_cast<float4*>(dst + j), make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kBlock) hash_bwd_stochastic_kernel(const float* __restrict__ pos,
+                                                                     const float* __restrict__ g,
+                                                                     float* __restrict__ d, long long n, int kr,
+                                                                     long long t_pad, LevelConstants lc) {
+  constexpr int G = hash_grid::kGroupFloats / F;  // levels a group
+  __shared__ float s_pos[3 * kBlock];
+  __shared__ float s_g[kBlock * kStride];
+  const long long i0 = (long long)blockIdx.x * kBlock;
+  const int nb = (int)min((long long)kBlock, n - i0);
+  const int l0 = blockIdx.y * G;
+  const int gl = min(G, lc.n_levels - l0);  // levels of this group (the last may be short)
+  hash_grid::stage_positions(pos, i0, nb, s_pos);
+  hash_grid::load_group(g, i0, nb, lc.n_levels * F, l0 * F, gl * F, s_g);
+  __syncthreads();
+  // every thread of the block runs the loop below the same number of times
+  // (the warp-wide merge needs all 32 lanes); a thread past the batch's end
+  // is inactive
+  const int t = threadIdx.x;
+  const bool live = t < nb;
+  float p[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    p[0] = s_pos[3 * t];
+    p[1] = s_pos[3 * t + 1];
+    p[2] = s_pos[3 * t + 2];
+  }
+  const uint32_t hp = (__float_as_uint(p[0]) * kPosMulX) ^ (__float_as_uint(p[1]) * kPosMulY) ^
+                      (__float_as_uint(p[2]) * kPosMulZ);
+  // sample i feeds the levels l with l % kr == i % kr: the group's first
+  // such level is l0 + first, then every kr-th
+  const int first = (int)((((i0 + t) % kr) - l0 % kr + kr) % kr);
+  const int steps = (gl + kr - 1) / kr;
+  const float scale = (float)kr;
+  for (int s = 0; s < steps; ++s) {
+    const int q = first + s * kr;  // the level's place in the group
+    const bool active = live && q < gl;
+    uint32_t key = 0xFFFFFFFFu;  // never a row: the launch checks L * T_pad < 2^32 - 1
+    float v[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = 0.0f;
+    if (active) {
+      const int l = l0 + q;
+      const hash_grid::Cell c = hash_grid::locate(p, l, lc);
+      uint32_t h = hp ^ (uint32_t)(l + 1) * kLevelSalt;
+      int k = 0;
+#pragma unroll
+      for (int dim = 0; dim < 3; ++dim) {  // one independent 24-bit uniform per dimension
+        h = (h ^ (h >> 15)) * kMix;
+        const float u = (float)(h >> 8) * 0x1p-24f;  // exact: h >> 8 < 2^24
+        k |= (u >= c.w0[dim] ? 1 : 0) << dim;
+      }
+      key = (uint32_t)l * (uint32_t)t_pad + hash_grid::corner_row(c, l, k, lc);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float gv = s_g[t * kStride + q * F + f];
+        v[f] = kr > 1 ? __fmul_rn(gv, scale) : gv;
+      }
+    }
+    deposit_merged<F>(d, key, active, v);
+  }
 }
 
 template <int F>
@@ -100,9 +192,9 @@ int launch(bool stochastic, const void* pos, const void* g, void* d, long long n
   const auto* gg = static_cast<const float*>(g);
   auto* dd = static_cast<float*>(d);
   if (stochastic) {
-    const long long m = n / kr;
-    const dim3 grid((unsigned)((m + 255) / 256), (unsigned)lc.n_levels);
-    hash_bwd_stochastic_kernel<F><<<grid, 256, 0, stream>>>(p, gg, dd, m, kr, t_pad, lc);
+    constexpr int G = hash_grid::kGroupFloats / F;
+    const dim3 grid((unsigned)((n + kBlock - 1) / kBlock), (unsigned)((lc.n_levels + G - 1) / G));
+    hash_bwd_stochastic_kernel<F><<<grid, kBlock, 0, stream>>>(p, gg, dd, n, kr, t_pad, lc);
   } else {
     const dim3 grid((unsigned)((n + 255) / 256), (unsigned)lc.n_levels);
     hash_bwd_exact_kernel<F><<<grid, 256, 0, stream>>>(p, gg, dd, n, t_pad, lc);
@@ -141,6 +233,8 @@ int hash_encode_bwd_exact(const void* pos, const void* g, void* d, long long n, 
 int hash_encode_bwd_stochastic(const void* pos, const void* g, void* d, long long n, int kr, long long t_pad, int f,
                                const hash_grid::LevelConstants* lc, void* stream) {
   if (kr < 1 || n % kr != 0) return (int)cudaErrorInvalidValue;
+  // the merge's 32-bit (level, row) key, with 2^32 - 1 kept for "no deposit"
+  if ((unsigned long long)lc->n_levels * (unsigned long long)t_pad >= 0xFFFFFFFFull) return (int)cudaErrorInvalidValue;
   return dispatch(true, pos, g, d, n, kr, t_pad, f, lc, stream);
 }
 

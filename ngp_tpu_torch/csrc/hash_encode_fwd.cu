@@ -15,59 +15,101 @@
 // out (N, L*F) f32, all contiguous.
 //
 // Bound: bytes. A sample reads 12 B of position and writes 4*L*F B; the
-// table rows it needs are read once each at best (U distinct rows of 4*F B).
-// At base.json's spec and N = 2^18 that is ~3 + ~64 + 34 MB, ~0.03 ms at
-// 3.35 TB/s; there is almost no arithmetic. What the kernel really moves is
-// 8*L*N random 8-byte corner loads (33.5M at that size), each in its own
-// 32-byte sector unless a neighbour shares it.
+// table rows it needs are read once each at best (U distinct (level, row)
+// pairs of 4*F B, which depend on the positions: ~5.9M at base.json's spec
+// for 2^18 uniform positions, far fewer for the samples of a ray-ordered
+// batch). At N = 2^18 with uniform positions that is ~3 + ~47 + 34 MB, ~0.025
+// ms at 3.35 TB/s; there is almost no arithmetic. What a gather really moves
+// is sectors: one random row is one 32-byte sector request into the L2.
 //
-// Design (simple first version): one thread per (sample, level); blockIdx.y
-// is the level, so the blocks in flight at any time work on one or two
-// levels and the rows they touch (at most 4 MB a level at base.json's size)
-// stay in the 50 MB L2, where all 67 MB of the table would not. The 8 corner
-// rows are loaded as one float2 each at F = 2 (float / float4 at the other
-// widths), summed in corner order, and stored as one row of the output.
+// Design:
+// - Level groups (hash_grid.cuh): a block takes 256 consecutive samples and
+//   8 / F levels (4 at base.json's F = 2); blockIdx.y is the group, so the
+//   blocks in flight read one group's rows (at most 4 levels x 4 MB at
+//   base.json's size), which stay in the 50 MB L2. Each thread takes one
+//   sample over the group's levels: its position is staged once per group,
+//   and a warp's loads at one level come from 32 consecutive samples, so
+//   the samples of one ray share sectors (and requests) at coarse levels.
+// - Paired corners: corners k and k|1 are rows r and r + 1 (wrapping only
+//   at r = size - 1 of a hash level); at F = 2 an even r reads both with one
+//   16-byte load (one 8-byte load at F = 1), so ~6 requests in ~5 sectors a
+//   (sample, level) instead of 8 requests.
+// - Whole-sector stores: each sample's 8 floats of the group go to shared
+//   memory, and the block writes them out with consecutive threads on
+//   consecutive floats (a thread per (sample, level) would write 8 bytes
+//   128 bytes apart: 32 sectors a warp store for 256 useful bytes).
+// - The 8 products are summed in corner order.
+// A level count that is not a multiple of the group is masked.
 // No "oct" view: ngp_tpu gathers one row of a packed (L, T_pad, 8F) view
 // because a TPU gather costs per row; on the card that view would be 8x the
 // table (537 MB at base.json's size) and rebuilt every training step.
+
+#include <cstdint>
 
 #include "hash_grid.cuh"
 
 namespace {
 
 using hash_grid::LevelConstants;
+using hash_grid::kBlock;
+using hash_grid::kStride;
 
 template <int F>
-__global__ void __launch_bounds__(256) hash_encode_fwd_kernel(const float* __restrict__ table,
-                                                              const float* __restrict__ pos,
-                                                              float* __restrict__ out, long long n,
-                                                              long long t_pad, LevelConstants lc) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int l = blockIdx.y;
-  const hash_grid::Cell c = hash_grid::locate(pos + 3 * i, l, lc);
-  const float* level = table + (long long)l * t_pad * F;
-  float acc[F];
+__global__ void __launch_bounds__(kBlock) hash_encode_fwd_kernel(const float* __restrict__ table,
+                                                                 const float* __restrict__ pos,
+                                                                 float* __restrict__ out, long long n,
+                                                                 long long t_pad, int paired, LevelConstants lc) {
+  constexpr int G = hash_grid::kGroupFloats / F;  // levels a group
+  __shared__ float s_pos[3 * kBlock];
+  __shared__ float s_out[kBlock * kStride];
+  const long long i0 = (long long)blockIdx.x * kBlock;
+  const int nb = (int)min((long long)kBlock, n - i0);
+  const int l0 = blockIdx.y * G;
+  const int gl = min(G, lc.n_levels - l0);  // levels of this group (the last may be short)
+  hash_grid::stage_positions(pos, i0, nb, s_pos);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < nb) {
+    const float p[3] = {s_pos[3 * t], s_pos[3 * t + 1], s_pos[3 * t + 2]};
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+    for (int q = 0; q < G; ++q) {
+      if (q < gl) {
+        const int l = l0 + q;
+        const hash_grid::Cell c = hash_grid::locate(p, l, lc);
+        const float* level = table + (long long)l * t_pad * F;
+        float acc[F];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float v[F];
-    hash_grid::load_row<F>(level + (long long)hash_grid::corner_row(c, l, k, lc) * F, v);
-    const float w = hash_grid::corner_weight(c, k);
+        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[f]));
+        for (int k = 0; k < 8; k += 2) {
+          float v0[F], v1[F];
+          hash_grid::load_pair<F>(level, hash_grid::corner_row(c, l, k, lc), lc.size[l], paired != 0, v0, v1);
+          const float w0 = hash_grid::corner_weight(c, k);
+          const float w1 = hash_grid::corner_weight(c, k + 1);
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w0, v0[f]));
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w1, v1[f]));
+        }
+#pragma unroll
+        for (int f = 0; f < F; ++f) s_out[t * kStride + q * F + f] = acc[f];
+      }
+    }
   }
-  hash_grid::store_row<F>(out + (i * lc.n_levels + l) * F, acc);
+  __syncthreads();
+  hash_grid::store_group(out, i0, nb, lc.n_levels * F, l0 * F, gl * F, s_out);
 }
 
 template <int F>
 int launch(const void* table, const void* pos, void* out, long long n, long long t_pad, const LevelConstants& lc,
            cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)lc.n_levels);
-  hash_encode_fwd_kernel<F><<<grid, 256, 0, stream>>>(static_cast<const float*>(table),
-                                                      static_cast<const float*>(pos), static_cast<float*>(out), n,
-                                                      t_pad, lc);
+  constexpr int G = hash_grid::kGroupFloats / F;
+  // one load for a row pair needs each level's base aligned to 2 rows
+  const int paired = (t_pad % 2 == 0) && (reinterpret_cast<uintptr_t>(table) % (8 * F) == 0);
+  const dim3 grid((unsigned)((n + kBlock - 1) / kBlock), (unsigned)((lc.n_levels + G - 1) / G));
+  hash_encode_fwd_kernel<F><<<grid, kBlock, 0, stream>>>(static_cast<const float*>(table),
+                                                         static_cast<const float*>(pos), static_cast<float*>(out),
+                                                         n, t_pad, paired, lc);
   return (int)cudaGetLastError();
 }
 

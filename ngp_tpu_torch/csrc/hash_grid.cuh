@@ -12,6 +12,14 @@
 //   w(k) = (W0 * W1) * W2, W_d = bit_d(k) ? 1 - w0_d : w0_d
 // Every product and sum that the plain version rounds on its own is an
 // explicit __fmul_rn / __fadd_rn / __fsub_rn, so nvcc cannot contract it.
+//
+// Level groups (the gather and the stochastic deposit): a block takes
+// kBlock consecutive samples and one group of kGroupFloats / F levels, so
+// that one sample's F floats over the group's levels are exactly one
+// 32-byte sector of the (N, L*F) output or gradient. The block stages its
+// positions and that sector of each sample through shared memory with
+// coalesced accesses (every warp access covers whole sectors), and each
+// thread works on one sample over the group's levels.
 
 #pragma once
 
@@ -22,6 +30,9 @@
 namespace hash_grid {
 
 constexpr int kMaxLevels = 32;
+constexpr int kBlock = 256;                // samples (threads) a block, in the level-group kernels
+constexpr int kGroupFloats = 8;            // floats of one sample over one level group: a 32-byte sector
+constexpr int kStride = kGroupFloats + 1;  // a sample's shared-memory row (odd: no bank conflicts)
 
 // Level constants of one HashGridSpec, built once on the host and passed to
 // each kernel by value (1,796 bytes of kernel parameters). The field order and
@@ -112,6 +123,62 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst, const float (
   } else {
 #pragma unroll
     for (int j = 0; j < F; j += 4) *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  }
+}
+
+// Corners k and k|1 of a cell (k even): rows r and (r + 1) mod size, since
+// offs[k|1] = (offs[k] + 1) mod size. The second row wraps to 0 only on a
+// hash level at r = size - 1; the dense clamp keeps r + 1 < size. Where
+// `paired` (the level's base is aligned to 2 * 4F bytes) and r is even, one
+// load reads both rows at F = 1 (8 bytes) and F = 2 (16 bytes); otherwise,
+// and always at F >= 4 (a row is already a 16-byte access), two loads.
+template <int F>
+__device__ __forceinline__ void load_pair(const float* __restrict__ level, uint32_t r, uint32_t size, bool paired,
+                                          float (&v0)[F], float (&v1)[F]) {
+  const uint32_t r1 = r + 1 == size ? 0u : r + 1;
+  if constexpr (F <= 2) {
+    if (paired && !(r & 1u) && r1 != 0u) {
+      if constexpr (F == 1) {
+        const float2 a = __ldg(reinterpret_cast<const float2*>(level + r));
+        v0[0] = a.x;
+        v1[0] = a.y;
+      } else {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(level + 2 * (size_t)r));
+        v0[0] = a.x;
+        v0[1] = a.y;
+        v1[0] = a.z;
+        v1[1] = a.w;
+      }
+      return;
+    }
+  }
+  load_row<F>(level + (size_t)r * F, v0);
+  load_row<F>(level + (size_t)r1 * F, v1);
+}
+
+// The block's positions, samples [i0, i0 + nb), into s_pos (3 * kBlock
+// floats) with coalesced loads: each position is read once per level group.
+__device__ __forceinline__ void stage_positions(const float* __restrict__ pos, long long i0, int nb, float* s_pos) {
+  for (int e = threadIdx.x; e < 3 * nb; e += blockDim.x) s_pos[e] = __ldg(pos + 3 * i0 + e);
+}
+
+// Columns [col, col + w) of rows [i0, i0 + nb) of a row-major array with
+// `cols` columns, to (load_group) or from (store_group) shared memory rows of
+// kStride floats. Consecutive threads take consecutive floats, so a warp
+// access covers whole 32-byte sectors when w = kGroupFloats.
+__device__ __forceinline__ void load_group(const float* __restrict__ x, long long i0, int nb, int cols, int col, int w,
+                                           float* s) {
+  for (int e = threadIdx.x; e < nb * w; e += blockDim.x) {
+    const int r = e / w, c = e - r * w;
+    s[r * kStride + c] = __ldg(x + (i0 + r) * cols + col + c);
+  }
+}
+
+__device__ __forceinline__ void store_group(float* __restrict__ x, long long i0, int nb, int cols, int col, int w,
+                                            const float* s) {
+  for (int e = threadIdx.x; e < nb * w; e += blockDim.x) {
+    const int r = e / w, c = e - r * w;
+    x[(i0 + r) * cols + col + c] = s[r * kStride + c];
   }
 }
 

@@ -287,3 +287,80 @@ def test_input_gradient_matches_cpu(card):
     got = model.to(card).input_gradient(pos.to(card))
     assert all(p.grad is None for p in model.parameters())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+
+def _kernel_spec(n_levels, n_features, rate):
+    from ngp_tpu_torch.ops import hash_encoding as he
+    from ngp_tpu_torch.utils.config import HashEncodingConfig
+
+    enc = dict(HASH_TINY, n_levels=n_levels, n_features_per_level=n_features, stochastic_level_rate=rate)
+    return he.HashGridSpec.create(HashEncodingConfig(**enc))
+
+
+def _kernel_positions(kind, n, spec, rng):
+    """(n, 3) float32: "uniform"; "rays", ray-major samples sqrt(3)/1024
+    apart, 128 a ray, as the render and training batches lie (many lanes of
+    a warp share a row at the coarse levels); "wrap", uniform points whose
+    cell puts a hash level's corner pair at r = size - 1 first."""
+    from ngp_tpu_torch.ops import hash_encoding as he
+
+    if kind == "rays":
+        n_rays = -(-n // 128)
+        d = rng.normal(size=(n_rays, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = (np.arange(128) * np.sqrt(3.0) / 1024)[None, :, None]
+        return (rng.uniform(0.25, 0.75, (n_rays, 1, 3)) + t * d).reshape(-1, 3)[:n].astype(np.float32)
+    pos = rng.uniform(0.0, 1.0, (max(n, 1 << 16), 3)).astype(np.float32)
+    if kind == "wrap":
+        rows = he.corner_rows(torch.from_numpy(pos), spec)
+        rows = rows - (torch.arange(spec.n_levels) * spec.padded_size)[None, :, None]
+        at_end = (rows[..., 0::2] == torch.tensor(spec.sizes)[None, :, None] - 1).any(-1).any(-1).numpy()
+        assert at_end.sum() >= min(n, 8)
+        pos = np.concatenate([pos[at_end], pos[~at_end]])
+    return pos[:n]
+
+
+# (N, features, levels, positions): ray-major batches, hash-level pairs at
+# r = size - 1, level counts that are no multiple of the kernels' level group
+# (8 / features), every feature width, and N = 1, 3 and 2^16 + 37
+HASH_GROUP_CASES = [
+    (2**16 + 37, 2, 8, "rays"),
+    (4096, 2, 8, "wrap"),
+    (4096, 1, 8, "wrap"),
+    (4099, 2, 5, "rays"),
+    (4100, 2, 6, "uniform"),
+    (4096, 1, 5, "rays"),
+    (4096, 4, 6, "rays"),
+    (1000, 8, 5, "rays"),
+    (2**16 + 37, 4, 8, "uniform"),
+    (1, 2, 8, "uniform"),
+    (3, 1, 6, "rays"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_features,n_levels,kind", HASH_GROUP_CASES)
+def test_hash_kernels_match_plain_by_level_group(card, n, n_features, n_levels, kind):
+    """The gather within 1e-5 of its plain version and the stochastic deposit
+    bit for bit (dyadic g) at level rates 1 and 2."""
+    from ngp_tpu_torch.ops import hash_encoding as he
+
+    rng = np.random.default_rng(n + 10 * n_features + n_levels)
+    spec = _kernel_spec(n_levels, n_features, 2)
+    pos = torch.from_numpy(_kernel_positions(kind, n, spec, rng)).to(card)
+    table = torch.from_numpy(
+        rng.uniform(-1.0, 1.0, (n_levels, spec.padded_size, n_features)).astype(np.float32)
+    ).to(card)
+    g = torch.from_numpy(rng.integers(-8, 9, (n, spec.n_output_dims)).astype(np.float32) * np.float32(2.0**-8)).to(card)
+    before = he.N_LAUNCHES_HASH_FWD
+    out = he.hash_encode(table, pos, spec)
+    torch.cuda.synchronize()
+    assert he.N_LAUNCHES_HASH_FWD == before + 1
+    torch.testing.assert_close(out, he.hash_encode_plain(table, pos, spec), rtol=0, atol=1e-5)
+    for rate in (1, 2):
+        sp = _kernel_spec(n_levels, n_features, rate)
+        before = he.N_LAUNCHES_HASH_BWD_STOCHASTIC
+        got = he.hash_bwd_oadd_stochastic(pos, sp, g)
+        torch.cuda.synchronize()
+        assert he.N_LAUNCHES_HASH_BWD_STOCHASTIC == before + 1
+        assert torch.equal(got, he.hash_bwd_oadd_stochastic_plain(pos, sp, g))

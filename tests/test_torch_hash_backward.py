@@ -133,3 +133,30 @@ def test_pos_grad_wrapper_gives_both_gradients():
     # only what is asked for: no table gradient for a table that needs none
     (d_pos_only,) = torch.autograd.grad(t_he.hash_encode_pos_grad(torch.from_numpy(table), tp, tspec), tp, torch.from_numpy(g))
     torch.testing.assert_close(d_pos_only, d_pos, rtol=0, atol=0)
+
+
+def _ray_ordered(rng, n_rays, n_per_ray):
+    """Ray-major positions, as a training batch lies: consecutive samples
+    sqrt(3)/1024 apart along one ray (base.json's step), so at the coarse
+    levels many neighbouring samples deposit into the same row."""
+    d = rng.normal(size=(n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = (np.arange(n_per_ray) * np.sqrt(3.0) / 1024)[None, :, None]
+    return (rng.uniform(0.25, 0.75, (n_rays, 1, 3)) + t * d).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("rate", [1, 2])
+def test_stochastic_deposit_matches_jax_on_ray_ordered_positions(rate):
+    """The one-corner deposit against _bwd_oadd_stochastic's fp32 path on a
+    ray-major batch; g of small integers x 2^-8 makes every sum exact, so
+    the two agree bit for bit whatever the order of their adds."""
+    jspec, tspec = _specs(True, rate)
+    rng = np.random.default_rng(17 + rate)
+    pos = _ray_ordered(rng, 32, 128)
+    g = rng.integers(-8, 9, (pos.shape[0], tspec.n_output_dims)).astype(np.float32) * np.float32(2.0**-8)
+    table = np.zeros((tspec.n_levels, tspec.padded_size, tspec.n_features), np.float32)
+    want = _jax_bwd(jspec, table, pos, g, True, jnp.float32)
+    got = _port_bwd(tspec, pos, g, True)
+    # level 0: far fewer rows than deposits, so many samples share a row
+    assert 0 < (np.abs(want[0]).sum(-1) > 0).sum() < 0.25 * pos.shape[0] / rate
+    np.testing.assert_array_equal(got, want)

@@ -42,15 +42,26 @@ def _positions(rng, n):
     return np.concatenate([pos, faces, corners, near_top])
 
 
+def _ray_ordered(rng, n_rays, n_per_ray):
+    """Ray-major positions, as a render or training batch lies: consecutive
+    samples sqrt(3)/1024 apart along one ray (base.json's step), so at the
+    coarse levels neighbouring samples share cells."""
+    d = rng.normal(size=(n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = (np.arange(n_per_ray) * np.sqrt(3.0) / 1024)[None, :, None]
+    return (rng.uniform(0.25, 0.75, (n_rays, 1, 3)) + t * d).reshape(-1, 3).astype(np.float32)
+
+
 @pytest.mark.parametrize("kw", [SMALL, dict(n_levels=5, log2_hashmap_size=11, base_resolution=6, desired_resolution=200.0)])
 @pytest.mark.parametrize("layout", ["opt", "legacy"])
-def test_oadd_forward_matches_packed(kw, layout):
+@pytest.mark.parametrize("positions", ["edges", "rays"])
+def test_oadd_forward_matches_packed(kw, layout, positions):
     spec_j = j_hash.HashGridSpec.create(JCfg(**kw))
     spec_t = t_hash.HashGridSpec.create(TCfg(**kw))
     assert any(spec_j.dense) and not all(spec_j.dense)
     rng = np.random.default_rng(3)
     table = rng.uniform(-1.0, 1.0, (spec_j.n_levels, spec_j.n_features, spec_j.padded_size)).astype(np.float32)
-    pos = _positions(rng, 1000)
+    pos = _positions(rng, 1000) if positions == "edges" else _ray_ordered(rng, 16, 128)
 
     ref = np.asarray(
         jax.jit(lambda t, p: j_hash.hash_encode_packed(j_hash.pack_inference_tables(t, spec_j), p, spec_j))(

@@ -5,6 +5,7 @@ ngp_tpu_torch only, and needs no nvcc."""
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -89,3 +90,71 @@ def test_kernel_wrappers_check_their_inputs():
     wide = he.HashGridSpec.create(HashEncodingConfig(**dict(TINY, n_features_per_level=3)))
     with pytest.raises(ValueError, match="features per level"):
         he.hash_encode_cuda(*_args(wide, 4, "cpu")[:2], wide)
+
+
+# small specs of the sweep: (n_levels, features, log2_hashmap_size, base_resolution, desired_resolution)
+SWEEP = [(4, 2, 12, 8, 64), (5, 1, 11, 6, 200), (6, 4, 10, 4, 128), (8, 8, 13, 16, 512), (3, 2, 8, 2, 32), (7, 2, 15, 16, 1024)]
+
+
+def _spec(name):
+    if name == "base.json":
+        return _base_spec()
+    if name == "TINY":
+        return he.HashGridSpec.create(HashEncodingConfig(**TINY))
+    n_levels, f, log2, base, desired = SWEEP[int(name)]
+    return he.HashGridSpec.create(
+        HashEncodingConfig(
+            n_levels=n_levels, n_features_per_level=f, log2_hashmap_size=log2, base_resolution=base,
+            desired_resolution=desired,
+        )
+    )
+
+
+def _pair_positions(seed):
+    """Uniform points, the box's faces and corners, points just under 1 (the
+    dense levels' upper clamp) and ray-ordered samples (64 rays of 64 points
+    sqrt(3)/1024 apart, as the render and training batches lie)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 1.0, (2000, 3))
+    faces = rng.uniform(0.0, 1.0, (256, 3))
+    faces[np.arange(256), rng.integers(0, 3, 256)] = rng.choice([0.0, 1.0], 256)
+    corners = np.array([[(k >> d) & 1 for d in range(3)] for k in range(8)], np.float64)
+    near_top = 1.0 - rng.uniform(0.0, 0.02, (64, 3))
+    d = rng.normal(size=(64, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = rng.uniform(0.25, 0.75, (64, 1, 3)) + (np.arange(64) * np.sqrt(3.0) / 1024)[None, :, None] * d
+    return torch.from_numpy(np.concatenate([pos, faces, corners, near_top, rays.reshape(-1, 3)]).astype(np.float32))
+
+
+def _level_rows(pos, spec):
+    """(N, L, 8) rows of each level's own table (not the flattened one)."""
+    rows = he.corner_rows(pos, spec)
+    return rows - (torch.arange(spec.n_levels) * spec.padded_size)[None, :, None]
+
+
+@pytest.mark.parametrize("name", ["base.json", "TINY", *(str(i) for i in range(len(SWEEP)))])
+def test_corner_pairs_are_adjacent_rows(name):
+    """Corners k and k|1 read rows r and (r + 1) mod size, which the kernels'
+    paired loads rely on; on a dense level the pair never wraps."""
+    spec = _spec(name)
+    r = _level_rows(_pair_positions(7), spec)
+    size = torch.tensor(spec.sizes)[None, :, None]
+    assert ((r >= 0) & (r < size)).all()
+    assert torch.equal(r[..., 1::2], (r[..., 0::2] + 1) % size)
+    dense = torch.tensor(spec.dense)
+    assert (r[:, dense, 0::2] + 1 < size[:, dense]).all()
+    if not name.isdigit():
+        assert dense.any() and not dense.all()  # both kinds of level are among the cases
+
+
+def test_hash_level_pairs_wrap_at_the_last_row():
+    """Uniform positions put some hash level's pair at r = size - 1, whose
+    second row is row 0 (the kernels load such a pair row by row)."""
+    spec = _spec("TINY")
+    pos = torch.from_numpy(np.random.default_rng(5).uniform(0.0, 1.0, (1 << 15, 3)).astype(np.float32))
+    r = _level_rows(pos, spec)
+    size = torch.tensor(spec.sizes)[None, :, None]
+    at_end = r[..., 0::2] == size - 1
+    assert at_end.sum() > 4
+    assert not at_end[:, torch.tensor(spec.dense)].any()
+    assert (r[..., 1::2][at_end] == 0).all()
