@@ -14,7 +14,7 @@ Phases, in order; any failure exits non-zero:
      adam_ema on the base.json hash table, hash_encode_fwd and both entries
      of hash_encode_bwd on HASH_CASES), and time the kernel, the plain
      version, a library yardstick where one exists and the card's lower bound
-     for the same work;
+     for the same work (the exact hash_encode_bwd is timed in phase 6);
   3. serve at the full width of experiment/nerf_synthetic/config/base.json:
      a Testbed on the card with seeded weights and a procedural density grid
      renders 800x800 frames (Shade spp 1 from three ring poses, then the
@@ -67,12 +67,18 @@ Phases, in order; any failure exits non-zero:
      every counter zeroed just before and read just after: 800x800 Shade
      spp-1 frames from the three ring poses and a Shade spp-8 frame, one
      frame profiled, small Shade and Normals frames card vs CPU; an xadd
-     model serves one frame and trains XADD_TRAIN_CALLS calls; a tcnn model
-     trains TCNN_TRAIN_CALLS train(16, 2**18) calls (the exact deposit must
-     launch at least once a step, the stochastic one never; one more call
-     profiled; held-out PSNR above PSNR_FLOOR), its TINY card-vs-CPU
-     train() check, and its reference-layout export is evaluated by the
-     protocol CLI (PSNR above PSNR_FLOOR);
+     model serves one frame and trains XADD_TRAIN_CALLS calls (one more
+     call profiled); a tcnn model trains TCNN_TRAIN_CALLS train(16, 2**18)
+     calls (the exact deposit must launch at least once a step, the
+     stochastic one never; one more call profiled; one eager
+     train(1, 2**18) step's positions captured; held-out PSNR above
+     PSNR_FLOOR), its TINY card-vs-CPU train() check, and its
+     reference-layout export is evaluated by the protocol CLI (PSNR above
+     PSNR_FLOOR); then the exact hash_encode_bwd of every variant (oadd,
+     xadd, tcnn) is held against its plain version and timed on 2^18
+     uniform positions, the frame's batch and that tcnn step's batch, with
+     its bound, distinct rows and, for information, index_add_ of the same
+     deposits, and each instantiation's ptxas registers and spills;
   7. print each kernel's time alone beside its device time per launch inside
      the profiled serve frame and train() call; print one {"kernels": [...]}
      line (launches: the protocol CLI's run; the [xadd] and [tcnn] entries
@@ -798,7 +804,8 @@ def hash_positions(spec, n: int, seed: int) -> torch.Tensor:
 
 def phase_hash_kernels(he, bw, fp32_flops):
     """hash_encode_fwd and both hash_encode_bwd entries vs their plain
-    versions on HASH_CASES; timings at base.json's N = 2^18."""
+    versions on HASH_CASES; the gather's and the stochastic deposit's
+    timings at base.json's N = 2^18 (the exact entry's: phase_exact_scatter)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {"fwd": 0.0, "stochastic": 0.0, "exact": 0.0}
     timing = {}
@@ -852,7 +859,6 @@ def phase_hash_kernels(he, bw, fp32_flops):
         cases = {
             "fwd": (lambda: he.hash_encode_cuda(table, pos, spec), lambda: he.hash_encode_plain(table, pos, spec)),
             "stochastic": (lambda: he.hash_bwd_oadd_stochastic_cuda(pos, spec, g), lambda: he.hash_bwd_oadd_stochastic_plain(pos, spec, g)),
-            "exact": (lambda: he.hash_bwd_exact_cuda(pos, spec, g), lambda: he.hash_bwd_exact_plain(pos, spec, g)),
         }
         for key, (kern, plain) in cases.items():
             timing[key] = {
@@ -1255,11 +1261,12 @@ def phase_variant_kernels(he, bw, fp32_flops, frame_pos: torch.Tensor, ptxas: di
     hash_encode_bwd against their plain versions at base.json's spec, on
     VARIANT_CASES (uniform positions with box and cell faces) and on one
     network batch of an 800x800 Shade frame (`frame_pos`): max and mean
-    error, and on the 2^18 set and the frame batch the ms, plain ms and bound
-    with the variant's own distinct rows. The exact scatter adds w * g with
-    weights that are no dyadic fractions, in the order its atomics land, so
-    it is held within HASH_EXACT_RTOL / HASH_EXACT_ATOL (x the gradient's
-    max), not bit for bit."""
+    error, and the gather's ms, plain ms and bound on the 2^18 set and the
+    frame batch with the variant's own distinct rows (the exact scatter's:
+    phase_exact_scatter). The exact scatter adds w * g with weights that are
+    no dyadic fractions, in the order its atomics land, so it is held within
+    HASH_EXACT_RTOL / HASH_EXACT_ATOL (x the gradient's max), not bit for
+    bit."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     base = hash_spec("base")
     out = {}
@@ -1269,7 +1276,7 @@ def phase_variant_kernels(he, bw, fp32_flops, frame_pos: torch.Tensor, ptxas: di
         table = torch.rand((L, T, F), generator=gen, device="cuda") * 2.0 - 1.0
         sets = {label: hash_positions(spec, n, 10 * vi + i) for i, (label, n) in enumerate(VARIANT_CASES)}
         sets["frame_batch"] = frame_pos
-        res = {"fwd": {}, "exact": {}, "max_abs_err": {"fwd": 0.0, "exact": 0.0}}
+        res = {"fwd": {}, "max_abs_err": {"fwd": 0.0, "exact": 0.0}}
         for label, pos in sets.items():
             n = pos.shape[0]
             g = torch.randn((n, L * F), generator=gen, device="cuda")
@@ -1295,22 +1302,77 @@ def phase_variant_kernels(he, bw, fp32_flops, frame_pos: torch.Tensor, ptxas: di
             if label == VARIANT_CASES[1][0]:
                 continue  # the ragged N is checked, not timed
             work = hash_work(he, spec, pos)
-            runs = {"fwd": (lambda: he.hash_encode_cuda(table, pos, spec), lambda: he.hash_encode_plain(table, pos, spec)),
-                    "exact": (lambda: he.hash_bwd_exact_cuda(pos, spec, g), lambda: he.hash_bwd_exact_plain(pos, spec, g))}
-            for key, (kern, plain) in runs.items():
-                res[key][label] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5), "library_ms": None,
-                                   **bound(*work[key], bw, fp32_flops), "distinct_rows": work["distinct_rows"]}
-                r = res[key][label]
-                print(f"{'hash_encode_fwd' if key == 'fwd' else 'hash_encode_bwd exact'} [{variant}] on {label}: "
-                      f"{r['ms']:.4f} ms alone, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
-                      f"{r['bytes'] / 1e6:.2f} MB), {r['distinct_rows']} distinct (level, row) pairs")
-        # the instantiations <F, variant> of each kernel (ptxas_summary's names)
-        code = he.VARIANTS.index(variant)
-        res["ptxas"] = {key: {k: v for k, v in ptxas.get(src, {}).items() if k.startswith(kern) and k.endswith(f",{code}>")}
-                        for key, src, kern in (("fwd", "hash_encode_fwd", "hash_encode_fwd_kernel"),
-                                               ("exact", "hash_encode_bwd", "hash_bwd_exact_kernel"))}
-        for inst, info in {**res["ptxas"]["fwd"], **res["ptxas"]["exact"]}.items():
+            res["fwd"][label] = {"ms": cuda_ms(lambda: he.hash_encode_cuda(table, pos, spec)),
+                                 "plain_ms": cuda_ms(lambda: he.hash_encode_plain(table, pos, spec), reps=5), "library_ms": None,
+                                 **bound(*work["fwd"], bw, fp32_flops), "distinct_rows": work["distinct_rows"]}
+            r = res["fwd"][label]
+            print(f"hash_encode_fwd [{variant}] on {label}: {r['ms']:.4f} ms alone, plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.2f} MB), {r['distinct_rows']} distinct "
+                  f"(level, row) pairs")
+        res["ptxas"] = instantiations(he, ptxas, "hash_encode_fwd", "hash_encode_fwd_kernel", variant)
+        for inst, info in res["ptxas"].items():
             print(f"ptxas {inst} [{variant}]: {info.get('registers')} registers, {info.get('spill_stores')} B spill stores")
+        out[variant] = res
+    return out
+
+
+def instantiations(he, ptxas: dict, src: str, kernel: str, variant: str) -> dict:
+    """ptxas_summary's entries of `kernel` <F, variant> in `src` for `variant`."""
+    code = he.VARIANTS.index(variant)
+    return {k: v for k, v in ptxas.get(src, {}).items() if k.startswith(kernel) and k.endswith(f",{code}>")}
+
+
+def phase_exact_scatter(he, bw, fp32_flops, sets: dict, ptxas: dict) -> dict:
+    """The exact hash_encode_bwd of every variant at base.json's spec on the
+    position sets of its paths (`sets`: 2^18 uniform positions with box and
+    cell faces, one network batch of an 800x800 Shade frame, one eager tcnn
+    train(1, 2**18) step's batch): held against its plain version within
+    HASH_EXACT_RTOL / HASH_EXACT_ATOL (x the gradient's max) and timed, with
+    its bound and the variant's distinct rows. Beside it, for information
+    only, index_add_ of the same deposits (exact_deposits' flat rows and
+    w * g, computed beforehand) into a zeroed flat (L * T_pad, F) gradient:
+    PyTorch's own scatter on identical work. It is not the table's library
+    column: no single PyTorch call computes the rows and weights too. Prints
+    each instantiation's ptxas registers and spills."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = hash_spec("base")
+    out = {}
+    for variant in he.VARIANTS:
+        spec = dataclasses.replace(base, variant=variant)
+        L, T, F = spec.n_levels, spec.padded_size, spec.n_features
+        res = {"max_abs_err": 0.0}
+        for label, pos in sets.items():
+            n = pos.shape[0]
+            g = torch.randn((n, L * F), generator=gen, device="cuda")
+            kd = he.hash_bwd_exact_cuda(pos, spec, g)
+            torch.cuda.synchronize()
+            pd = he.hash_bwd_exact_plain(pos, spec, g)
+            err = (kd - pd).abs().max().item()
+            ok = torch.allclose(kd, pd, rtol=HASH_EXACT_RTOL, atol=HASH_EXACT_ATOL * pd.abs().max().item())
+            print(f"hash_encode_bwd exact [{variant}] {label}: N={n} max_abs_err={err:.3e} (rtol {HASH_EXACT_RTOL}, atol "
+                  f"{HASH_EXACT_ATOL} x max {pd.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the exact hash_encode_bwd [{variant}] disagrees with its plain version ({label})")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            del kd, pd
+            work = hash_work(he, spec, pos)
+            rows, vals = he.exact_deposits(pos, spec, g)
+            r = res[label] = {
+                "ms": cuda_ms(lambda: he.hash_bwd_exact_cuda(pos, spec, g)),
+                "plain_ms": cuda_ms(lambda: he.hash_bwd_exact_plain(pos, spec, g), reps=5),
+                "library_ms": None,
+                "index_add_ms": cuda_ms(lambda: torch.zeros((L * T, F), device="cuda").index_add_(0, rows, vals)),
+                **bound(*work["exact"], bw, fp32_flops),
+                "distinct_rows": work["distinct_rows"],
+            }
+            del rows, vals
+            print(f"hash_encode_bwd exact [{variant}] on {label}: {r['ms']:.4f} ms alone, plain {r['plain_ms']:.3f} ms, "
+                  f"index_add_ of the same deposits {r['index_add_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}, {r['bytes'] / 1e6:.2f} MB), {r['distinct_rows']} distinct (level, row) pairs")
+        res["ptxas"] = instantiations(he, ptxas, "hash_encode_bwd", "hash_bwd_exact_kernel", variant)
+        for inst, info in res["ptxas"].items():
+            print(f"ptxas {inst} [{variant}]: {info.get('registers')} registers, {info.get('spill_stores')} B spill stores, "
+                  f"{info.get('spill_loads')} B spill loads")
         out[variant] = res
     return out
 
@@ -1438,7 +1500,7 @@ def phase_xadd_path(Testbed, NGPModel, train_json) -> dict:
     """An xadd model on the main paths, with every counter zeroed just before
     and read just after: one 800x800 Shade spp-1 frame of the seeded serving
     model, then XADD_TRAIN_CALLS train(16, 2**18) calls on the procedural
-    scene."""
+    scene; then one more call profiled (the exact scatter's time a launch)."""
     tb = make_testbed(Testbed, NGPModel, "cuda", "xadd")
     w, h = FRAME
     tb.set_nerf_camera_matrix(ring_pose(POSES[0]))
@@ -1456,8 +1518,11 @@ def phase_xadd_path(Testbed, NGPModel, train_json) -> dict:
     if serve["hash_encode_fwd"] < 1 or not all(math.isfinite(c["loss"]) for c in calls):
         raise SystemExit("the xadd paths launched no gather or trained to a non-finite loss")
     check_variant_launches("xadd", train, 16 * XADD_TRAIN_CALLS)
+    prof = in_path(device_profile(lambda: tr.train(16, TRAIN_BATCH)))
+    print(f"xadd: profiled train(16, 2**18) call (graphed: {tr.training_buffer.graphed}): exact hash_encode_bwd "
+          f"{prof['hash_encode_bwd']} ({card_line()})")
     return {"frame_ms": ms, "frame_samples": samples, "serve_launches": serve, "calls": calls, "train_launches": train,
-            "launches": launches}
+            "launches": launches, "profile": {"graphed": tr.training_buffer.graphed, "in_path": prof}}
 
 
 def phase_tcnn_train(Testbed, NGPModel, train_json, test_json) -> dict:
@@ -1466,11 +1531,14 @@ def phase_tcnn_train(Testbed, NGPModel, train_json, test_json) -> dict:
     of a steady shape replays 8 captured steps with the exact scatter
     inside), every counter zeroed just before and read just after: the
     exact hash_encode_bwd must launch at least once a step and the
-    stochastic one never; one more call profiled; the held-out PSNR; the
-    card-vs-CPU train() check of the TINY config with the tcnn hash; then
-    the model exported as a reference-layout snapshot and the protocol CLI
-    evaluating that file on the test views (PSNR floor PSNR_FLOOR)."""
+    stochastic one never; one more call profiled; one eager train(1, 2**18)
+    step whose exact scatter's positions are captured (returned beside the
+    results); the held-out PSNR; the card-vs-CPU train() check of the TINY
+    config with the tcnn hash; then the model exported as a reference-layout
+    snapshot and the protocol CLI evaluating that file on the test views
+    (PSNR floor PSNR_FLOOR)."""
     from ngp_tpu_torch.experiment import run as cli
+    from ngp_tpu_torch.ops import hash_encoding as he
 
     tb = Testbed(device="cuda")
     tb.load_model_config_dict(variant_doc("tcnn"))
@@ -1501,6 +1569,10 @@ def phase_tcnn_train(Testbed, NGPModel, train_json, test_json) -> dict:
           f"({card_line()})")
     for key, ms, count in rows[:8]:
         print(f"  {ms:9.2f} ms {count:6d}x  {key[:110]}")
+    # the positions of one eager train(1, 2**18) step's batch, for phase_exact_scatter
+    batch = capture_positions(he, "hash_bwd_exact_cuda", TRAIN_BATCH, lambda: tb.train(1, TRAIN_BATCH))
+    if not batch:
+        raise SystemExit(f"the tcnn train(1, 2**18) step ran no exact scatter of {TRAIN_BATCH} rows")
     w, h = SCENE["width"], SCENE["height"]
     psnr = psnr_view(tb, test_json, 0, w, h)
     print(f"tcnn held-out view 0 at {w}x{h}: PSNR {psnr:.2f} dB (floor {PSNR_FLOOR})")
@@ -1524,7 +1596,7 @@ def phase_tcnn_train(Testbed, NGPModel, train_json, test_json) -> dict:
             "profile": {"graphed": profiled_graphed, "device_busy_ms": busy, "in_path": prof,
                         "top_kernels": [[k[:80], ms, c] for k, ms, c in rows[:8]]},
             "psnr_test_view_0": psnr, "reference": reference,
-            "cli": {"psnr": summary["psnr"], "ssim": summary["ssim"], "fps": summary["fps"], "s": cli_s}}
+            "cli": {"psnr": summary["psnr"], "ssim": summary["ssim"], "fps": summary["fps"], "s": cli_s}}, batch[0]
 
 
 def kernel_entry(name, source, replaces, launches, max_err, timing):
@@ -1605,11 +1677,12 @@ def main():
     del train_tb
     train["reference"] = phase_train_reference(Testbed, NGPModel)
     train["card"] = card
+    frame_pos = frame_batches[len(frame_batches) // 2]
     path_fwd_err, path_hash = phase_path_hash(
-        he, bw, fp32_flops, {"frame_batch": frame_batches[len(frame_batches) // 2], "train_batch": train_batches[0]}, hash_timing
+        he, bw, fp32_flops, {"frame_batch": frame_pos, "train_batch": train_batches[0]}, hash_timing
     )
     # the xadd and tcnn instantiations of the hash kernels, on the same frame batch
-    variant_kernels = phase_variant_kernels(he, bw, fp32_flops, frame_batches[len(frame_batches) // 2], ptxas)
+    variant_kernels = phase_variant_kernels(he, bw, fp32_flops, frame_pos, ptxas)
     del frame_batches, train_batches
     print(f"train phase {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
@@ -1621,11 +1694,17 @@ def main():
 
     # phase 6: the hash variants on the main paths: a tcnn model served from
     # a reference-layout snapshot, an xadd model serving and training, a
-    # tcnn model trained, exported and evaluated by the CLI
+    # tcnn model trained, exported and evaluated by the CLI; then the exact
+    # scatter of every variant on uniform positions, the frame batch and the
+    # tcnn training step's batch
     t = time.perf_counter()
     variants = {"kernels": variant_kernels, "interchange": phase_interchange(Testbed, NGPModel),
-                "xadd": phase_xadd_path(Testbed, NGPModel, train["scene_json"][0]),
-                "tcnn_train": phase_tcnn_train(Testbed, NGPModel, *train["scene_json"]), "card": card}
+                "xadd": phase_xadd_path(Testbed, NGPModel, train["scene_json"][0]), "card": card}
+    variants["tcnn_train"], tcnn_pos = phase_tcnn_train(Testbed, NGPModel, *train["scene_json"])
+    exact_sets = {"uniform": hash_positions(hash_spec("base"), TRAIN_BATCH, 0), "frame_batch": frame_pos,
+                  "tcnn_train_batch": tcnn_pos}
+    exact = variants["exact_scatter"] = phase_exact_scatter(he, bw, fp32_flops, exact_sets, ptxas)
+    del frame_pos, tcnn_pos, exact_sets
     print(f"variant phase {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     # phase 7: results; `launches` counts the protocol CLI's run (this
@@ -1655,11 +1734,12 @@ def main():
         "hash_encode_bwd", "ngp_tpu_torch/csrc/hash_encode_bwd.cu", "tools/microbench.py:252; tools/microbench.py:299",
         sum(pl[k] for k in bwd_names), hash_err["stochastic"], hash_timing["stochastic"],
     )
-    ex = hash_timing["exact"]
+    ex = exact["oadd"]["uniform"]
     hfwd["path_shaped"] = path_hash["fwd"]
     hbwd["path_shaped"] = path_hash["stochastic"]
     hbwd["exact"] = {"ms": ex["ms"], "plain_ms": ex["plain_ms"], "bound_ms": ex["bound_ms"], "bound_by": ex["bound_by"],
-                     "library_ms": None, "max_abs_err": hash_err["exact"]}
+                     "library_ms": None, "max_abs_err": max(hash_err["exact"], exact["oadd"]["max_abs_err"]),
+                     "path_shaped": {k: exact["oadd"][k] for k in ("frame_batch", "tcnn_train_batch")}}
     fwd["launches_by_path"] = by_path("fused_mlp_fwd")
     bwd["launches_by_path"] = by_path("fused_mlp_bwd")
     adam["launches_by_path"] = by_path("adam_ema")
@@ -1675,21 +1755,29 @@ def main():
     # the variants' instantiations, each with the launches of its own paths
     il, xs, xt = variants["interchange"]["launches"], variants["xadd"]["serve_launches"], variants["xadd"]["train_launches"]
     tt, tprof = variants["tcnn_train"]["launches"], variants["tcnn_train"]["profile"]["in_path"]
+    xprof = variants["xadd"]["profile"]["in_path"]
     for variant, launches, in_frame, in_step in (
         ("tcnn", {"serve_reference_snapshot": il, "train": tt}, variants["interchange"]["hash_encode_fwd_in_frame"], tprof),
-        ("xadd", {"serve": xs, "train": xt}, None, None),
+        ("xadd", {"serve": xs, "train": xt}, None, xprof),
     ):
-        vk = variant_kernels[variant]
+        vk, ek = variant_kernels[variant], exact[variant]
         for key, base, counter, src in (("fwd", hfwd, "hash_encode_fwd", "hash_encode_fwd"),
                                         ("exact", hbwd, "hash_encode_bwd_exact", "hash_encode_bwd")):
             by = {path: n[counter] for path, n in launches.items()}
-            e = kernel_entry(f"{src}[{variant}]" if key == "fwd" else f"hash_encode_bwd_exact[{variant}]", base["source"],
-                             base["replaces"], sum(by.values()), vk["max_abs_err"][key], vk[key]["2^18"])
+            if key == "fwd":
+                e = kernel_entry(f"{src}[{variant}]", base["source"], base["replaces"], sum(by.values()),
+                                 vk["max_abs_err"][key], vk[key]["2^18"])
+                e["path_shaped"] = {"frame_batch": vk[key]["frame_batch"]}
+                e["ptxas"] = vk["ptxas"]
+                e["ms_in_frame"] = in_frame["ms_per_launch"] if in_frame else None
+            else:
+                e = kernel_entry(f"hash_encode_bwd_exact[{variant}]", base["source"], base["replaces"], sum(by.values()),
+                                 max(vk["max_abs_err"][key], ek["max_abs_err"]), ek["uniform"])
+                e["path_shaped"] = {k: ek[k] for k in ("frame_batch", "tcnn_train_batch")}
+                e["ptxas"] = ek["ptxas"]
+                e["ms_in_frame"] = None
+            e["ms_in_step"] = in_step[src]["ms_per_launch"]
             e["launches_by_path"] = by
-            e["path_shaped"] = {"frame_batch": vk[key]["frame_batch"]}
-            e["ptxas"] = vk["ptxas"][key]
-            e["ms_in_frame"] = in_frame["ms_per_launch"] if key == "fwd" and in_frame else None
-            e["ms_in_step"] = in_step[src]["ms_per_launch"] if in_step else None
             kernels.append(e)
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms alone, {k['ms_in_frame']} ms a launch in the profiled frame, "

@@ -317,17 +317,24 @@ def hash_encode_plain(table: torch.Tensor, pos: torch.Tensor, spec: HashGridSpec
 
 
 # ------------------------------------------------------------------ backward
+def exact_deposits(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor):
+    """The exact scatter's deposits under spec.variant: rows (N*L*8,) int64 of
+    the flattened (L * T_pad, F) table and the values w8[k] * g (N*L*8, F)
+    fp32 added there, in (sample, level, corner) order."""
+    n, L, F = pos.shape[0], spec.n_levels, spec.n_features
+    rows, factors, _ = _corner_cells(pos, spec)
+    w8 = _corner_weights(factors, spec.variant)  # (N, L, 8)
+    return _flat(rows, spec).reshape(-1), (w8[..., None] * g.reshape(n, L, 1, F)).reshape(-1, F)
+
+
 def hash_bwd_exact_plain(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
     """The exact scatter's function in plain torch: the table gradient of
     spec.variant (no d/dpos), every sample deposits w8[k] * g into all 8
     corner rows of its cell (ngp_tpu's _bwd_oadd, _bwd_xadd, _bwd_tcnn).
     pos (N, 3), g (N, L*F) -> (L, T_pad, F) fp32, accumulated in fp32."""
-    n, L, F, T = pos.shape[0], spec.n_levels, spec.n_features, spec.padded_size
-    rows, factors, _ = _corner_cells(pos, spec)
-    w8 = _corner_weights(factors, spec.variant)  # (N, L, 8)
-    contrib = w8[..., None] * g.reshape(n, L, 1, F)
+    L, F, T = spec.n_levels, spec.n_features, spec.padded_size
     d = torch.zeros((L * T, F), dtype=torch.float32, device=pos.device)
-    d.index_add_(0, _flat(rows, spec).reshape(-1), contrib.reshape(-1, F))
+    d.index_add_(0, *exact_deposits(pos, spec, g))
     return d.reshape(L, T, F)
 
 

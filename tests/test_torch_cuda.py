@@ -357,9 +357,18 @@ def _kernel_positions(kind, n, spec, rng):
     """(n, 3) float32: "uniform"; "rays", ray-major samples sqrt(3)/1024
     apart, 128 a ray, as the render and training batches lie (many lanes of
     a warp share a row at the coarse levels); "wrap", uniform points whose
-    cell puts a hash level's corner pair at r = size - 1 first."""
+    cell puts a hash level's corner pair at r = size - 1 first; "one_cell",
+    each point 32 times in a row, so the 32 lanes of a warp share every
+    cell; "x_clamp", uniform points with x = 1, where the dense levels
+    clamp x at res - 1."""
     from ngp_tpu_torch.ops import hash_encoding as he
 
+    if kind == "one_cell":
+        return np.repeat(rng.uniform(0.0, 1.0, (-(-n // 32), 3)), 32, axis=0)[:n].astype(np.float32)
+    if kind == "x_clamp":
+        pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+        pos[:, 0] = 1.0
+        return pos
     if kind == "rays":
         n_rays = -(-n // 128)
         d = rng.normal(size=(n_rays, 1, 3))
@@ -568,6 +577,60 @@ def test_hash_variant_kernels_match_plain(card, variant, n, n_features, n_levels
     with pytest.raises(ValueError, match="oadd"):
         he.hash_bwd_oadd_stochastic_cuda(pos, spec, g)
     assert he.N_LAUNCHES_HASH_BWD_STOCHASTIC == before[2]
+
+
+# the exact scatter of every variant over HASH_GROUP_CASES, plus warps whose 32
+# samples share every cell (every merge key equal) and tcnn's dense levels
+# where x clamps at res - 1 (corners k and k|1 on one row)
+EXACT_CASES = [
+    *((variant, *case) for variant in ("oadd", "xadd", "tcnn") for case in HASH_GROUP_CASES),
+    *((variant, 4096, 2, 8, "one_cell") for variant in ("oadd", "xadd", "tcnn")),
+    ("tcnn", 4096, 2, 8, "x_clamp"),
+    ("tcnn", 4099, 1, 8, "x_clamp"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,n,n_features,n_levels,kind", EXACT_CASES)
+def test_exact_scatter_matches_plain(card, variant, n, n_features, n_levels, kind):
+    """The exact scatter against its plain version: w * g summed in another
+    order (atomics in any order, lanes merged by shuffles), so rtol 1e-5 and
+    atol 1e-5 x the gradient's max."""
+    import dataclasses
+
+    from ngp_tpu_torch.ops import hash_encoding as he
+
+    rng = np.random.default_rng(n + 10 * n_features + n_levels + 7 * len(kind))
+    spec = dataclasses.replace(_kernel_spec(n_levels, n_features, 1), variant=variant)
+    pos = torch.from_numpy(_kernel_positions(kind, n, spec, rng))
+    if kind == "x_clamp":
+        rows = he.corner_rows(pos, spec)
+        assert (rows[..., 0::2] == rows[..., 1::2]).any()  # the clamp puts a pair on one row
+    pos = pos.to(card)
+    g = torch.from_numpy(rng.normal(size=(n, spec.n_output_dims)).astype(np.float32)).to(card)
+    before = he.N_LAUNCHES_HASH_BWD_EXACT
+    d = he.hash_bwd_exact(pos, spec, g)
+    torch.cuda.synchronize()
+    assert he.N_LAUNCHES_HASH_BWD_EXACT == before + 1
+    want = he.hash_bwd_exact_plain(pos, spec, g)
+    torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_exact_scatter_refuses_an_odd_row_count(card):
+    """At F <= 2 a deposit adds two flat rows, so the kernel takes only an
+    even L * T_pad (every HashGridSpec.create spec has one): an odd one
+    raises and launches nothing."""
+    from ngp_tpu_torch.ops import hash_encoding as he
+
+    spec = he.HashGridSpec(n_levels=1, n_features=2, scales=(2.0,), resolutions=(3,), dense=(True,), sizes=(27,),
+                           offsets=(0,), variant="tcnn")
+    pos = torch.rand((64, 3), device=card)
+    g = torch.randn((64, 2), device=card)
+    before = he.N_LAUNCHES_HASH_BWD_EXACT
+    with pytest.raises(RuntimeError, match="exact"):
+        he.hash_bwd_exact(pos, spec, g)
+    assert he.N_LAUNCHES_HASH_BWD_EXACT == before
 
 
 @pytest.mark.cuda

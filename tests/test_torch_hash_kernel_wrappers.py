@@ -1,8 +1,10 @@
 """The hash-grid kernels' wrappers without a card: the level constants they
-pass to the kernels and their device dispatch. Imports torch, numpy and
-ngp_tpu_torch only, and needs no nvcc."""
+pass to the kernels, their device dispatch and the corner-row pairings the
+kernels rely on. Imports torch, numpy and ngp_tpu_torch only, and needs no
+nvcc."""
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -159,3 +161,57 @@ def test_hash_level_pairs_wrap_at_the_last_row():
     assert at_end.sum() > 4
     assert not at_end[:, torch.tensor(spec.dense)].any()
     assert (r[..., 1::2][at_end] == 0).all()
+
+
+# the exact scatter's deposit units: at F <= 2 two flat rows {2u, 2u + 1} of
+# the (L * T_pad, F) gradient, so corners k and k|1 share one deposit where
+# their rows differ only in bit 0 (or are one row); the rules below say where
+PAIR_SPECS = ["base.json", "TINY", *(str(i) for i in range(len(SWEEP)))]
+
+
+def _variant_rows(name, variant):
+    """The spec, the pair positions, their (N, L, 8) level rows and (N, L)
+    cell base x under `variant`, from the plain cell math."""
+    spec = dataclasses.replace(_spec(name), variant=variant)
+    pos = _pair_positions(7)
+    base, _ = he._grid_coords(pos, he._level_constants(spec, pos.device))
+    return spec, _level_rows(pos, spec), base[..., 0]
+
+
+@pytest.mark.parametrize("name", PAIR_SPECS)
+def test_xadd_corner_pairs_are_adjacent_rows(name):
+    """xadd: corners k and k|1 read rows r and (r + 1) mod size, and every
+    level starts on an even flat row (T_pad even)."""
+    spec, r, _ = _variant_rows(name, "xadd")
+    size = torch.tensor(spec.sizes)[None, :, None]
+    assert spec.padded_size % 2 == 0
+    assert torch.equal(r[..., 1::2], (r[..., 0::2] + 1) % size)
+
+
+@pytest.mark.parametrize("name", PAIR_SPECS)
+def test_tcnn_hash_level_pairs_differ_in_bit_0(name):
+    """tcnn on a hash level (its size a power of two): at an even base x,
+    corners k and k|1 read rows h and h ^ 1."""
+    spec, r, x = _variant_rows(name, "tcnn")
+    hashed = ~torch.tensor(spec.dense)
+    assert hashed.any()
+    assert all(s & (s - 1) == 0 for s, d in zip(spec.sizes, spec.dense, strict=True) if not d)
+    r0, r1 = r[:, hashed, 0::2], r[:, hashed, 1::2]
+    even = (x[:, hashed] % 2 == 0)[..., None].expand_as(r0)
+    assert even.any() and (~even).any()
+    assert torch.equal(r1[even], r0[even] ^ 1)
+
+
+@pytest.mark.parametrize("name", PAIR_SPECS)
+def test_tcnn_dense_level_pairs_are_adjacent_or_clamped(name):
+    """tcnn on a dense level: corners k and k|1 read rows r and r + 1, and
+    one row exactly where x clamps at res - 1 (or below 0)."""
+    spec, r, x = _variant_rows(name, "tcnn")
+    dense = torch.tensor(spec.dense)
+    res = torch.tensor(spec.resolutions)[dense]
+    r0, r1 = r[:, dense, 0::2], r[:, dense, 1::2]
+    clamped = ((x[:, dense] >= res - 1) | (x[:, dense] < 0))[..., None].expand_as(r0)
+    assert torch.equal(r1 == r0, clamped)
+    assert torch.equal(r1[~clamped], r0[~clamped] + 1)
+    if not name.isdigit():
+        assert clamped.any()  # the clamp is among the cases

@@ -50,6 +50,12 @@ def test_chip_smoke_imports_no_jax():
         assert word not in src
 
 
+def test_exact_scatter_bench_imports_no_jax():
+    src = (ROOT / "exact_scatter_bench.py").read_text()
+    for word in ("import jax", "from jax", "import ngp_tpu\n", "from ngp_tpu.", "import ngp_tpu."):
+        assert word not in src
+
+
 def test_testbed_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from ngp_tpu_torch import Testbed
 
