@@ -1,0 +1,2 @@
+# Frozen copy of ngp_tpu_torch/models/__init__.py at commit ef1215de9ec9, the plain path only: the benchmark's reference.
+"""The NGP model (counterpart: ngp_tpu/models/)."""

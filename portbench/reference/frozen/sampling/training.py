@@ -1,0 +1,268 @@
+# Frozen copy of ngp_tpu_torch/sampling/training.py at commit ef1215de9ec9, the plain path only: the benchmark's reference.
+"""Training ray and sample generation at static shapes.
+
+Counterpart: ngp_tpu/sampling/training.py:47-81 (TrainingBatch) and
+:83-329 (generate_training_batch): per ray an image (the reference's uint32
+stride pick, with wraparound), a pixel and a march-start jitter from the
+pcg4d counter hash over the ray index and two u32 salts, snapped to pixel
+centers; the ray is clipped to the scene box behind the near distance and
+marched over the t-lattice from its occupied-window start k0 (exact
+empty-space skip) for n_window points, or, with n_seg_cap, through the
+two-level march (a coarse premask of 8-point segments over the halo-pooled
+grid, then the fine march on the first n_seg_cap kept segments); each ray's
+occupied samples are truncated to `s_pad`; with s_short and n_long the
+n_long longest rays composite in a (n_long, s_pad) bucket and the rest in
+(R, s_short); rays longer than their bucket or overflowing the flat sample
+budget are dropped whole, and the survivors fill the flat network batch
+through the flat <-> padded layout (ops/layout.py). Per-ray compaction is a
+row sort of where(mask, lattice ordinal, sentinel), cut to s_pad.
+
+Every shape depends only on the arguments, never on the data, and nothing
+syncs with the host or copies to the card: the salts (2,) and n_rays_shift
+() may be device tensors, so a training step can be captured in a CUDA
+graph. `stride_denom` and `index_offset` let a data-parallel shard draw
+its slice [index_offset, index_offset + n_rays) of a stride_denom-ray
+global batch: the image pick divides by the global count and every per-ray
+draw (image, pixel, march jitter) hashes the global ray index, so the
+shards' rays are exactly the global batch's (parallel/mesh.py). Differs:
+the salts are an argument (ngp_tpu draws them from a threefry key, :152);
+n_lattice is computed, not passed.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from portbench.reference.frozen.data.nerf_synthetic import read_rgba
+from portbench.reference.frozen.grid.occupancy import packed_neighborhood, pcg4d, pooled_occupancy
+from portbench.reference.frozen.ops.layout import SampleLayout, build_layout
+from portbench.reference.frozen.sampling.lattice import (
+    SEG,
+    coarse_segment_mask,
+    count_samples,
+    count_samples_segments,
+    lattice_dt,
+    lattice_t,
+    n_lattice_points,
+    occupied_window_start,
+    packed_march_supported,
+)
+from portbench.reference.frozen.utils.aabb import AABB
+from portbench.reference.frozen.utils.config import SamplerConfig
+from portbench.reference.frozen.utils.fma import dot_fma, sqrt_rn
+from portbench.reference.frozen.utils.qmc import mul32
+
+_MASK = 0xFFFFFFFF
+
+
+class TrainingBatch(NamedTuple):
+    rays_o: torch.Tensor  # (R, 3)
+    rays_d: torch.Tensor  # (R, 3)
+    rgba: torch.Tensor  # (R, 4) premultiplied-linear target
+    ray_valid: torch.Tensor  # (R,) bool, kept rays (either bucket)
+    layout: SampleLayout  # short bucket: all R rays at width s_short
+    layout_long: SampleLayout | None  # the n_long longest rays at width s_pad (None unbucketed)
+    sel_long: torch.Tensor | None  # (n_long,) ascending ray indices of the long rows
+    valid_long: torch.Tensor | None  # (n_long,) bool
+    valid_short: torch.Tensor  # (R,) bool, kept rays composited in the short bucket
+    pos: torch.Tensor  # (C, 3) warped network positions
+    dirs: torch.Tensor  # (C, 3) warped directions
+    dt_pad: torch.Tensor | None  # (R, s_short) step sizes; None when constant (c == 0)
+    dt_pad_long: torch.Tensor | None  # (n_long, s_pad)
+    n_samples: torch.Tensor  # () generated samples before drops
+    max_ray_count: torch.Tensor  # () longest ray (the s_pad controller's signal)
+    count_at_split: torch.Tensor  # () longest count outside the top n_long (the s_short controller's)
+    seg_count_hi: torch.Tensor  # () p99.5 of the rays' coarse-kept segment counts (0 without the coarse pass)
+    image_index: torch.Tensor  # (R,) picked image per ray
+    xy: torch.Tensor  # (R, 2) normalized pixel coordinate
+
+
+def generate_training_batch(
+    cfg: SamplerConfig,
+    aabb: AABB,
+    images: torch.Tensor,  # (N, H, W, 4) fp16
+    xforms: torch.Tensor,  # (N, 3, 4)
+    focal_length,
+    principal_point,
+    occupancy: torch.Tensor,  # (n_cascades, G, G, G) bool
+    salts,  # (2,) u32 draws
+    n_rays: int,
+    n_rays_shift,  # () u32
+    capacity: int,
+    s_pad: int,
+    stride_denom: int = 0,  # the global batch's ray count (0: n_rays)
+    index_offset: int = 0,  # this shard's first global ray index
+    occ_aabb=None,  # (2, 3) occupied-cell box: enables the window start k0
+    n_window: int = 0,
+    s_short: int = 0,
+    n_long: int = 0,
+    n_seg_cap: int = 0,
+    want_seg_stat: bool = False,
+) -> TrainingBatch:
+    """`occ_aabb` with `n_window` clips each ray's march to the window of
+    n_window lattice points from its entry into the occupied box (the
+    TrainingLoop sizes n_window from the box's diagonal). `s_short` /
+    `n_long` enable the two buckets; `n_seg_cap` > 0 the two-level march
+    (arithmetic lattice with the window on), which truncates a ray to its
+    first n_seg_cap coarse-kept segments; `want_seg_stat` computes
+    seg_count_hi without the two-level march."""
+    dev = occupancy.device
+    n_images, h, w = images.shape[0], images.shape[1], images.shape[2]
+    n_lattice = n_lattice_points(cfg)
+    n_window = min(n_window or n_lattice, n_lattice)
+    s_pad = min(s_pad, n_window)  # counts never exceed the window
+    salts = torch.as_tensor(salts, dtype=torch.int64, device=dev) & _MASK
+    shift = torch.as_tensor(n_rays_shift, dtype=torch.int64, device=dev) & _MASK
+
+    # image pick: uint32 stride arithmetic with wraparound (cu:348), over the
+    # global ray index and the global count
+    i = (torch.arange(n_rays, dtype=torch.int64, device=dev) + (int(index_offset) & _MASK)) & _MASK
+    img = (mul32((i + shift) & _MASK, n_images) // (stride_denom or n_rays)) % n_images
+
+    h0, h1, h2, _ = pcg4d(i, salts[0].expand(n_rays), salts[1].expand(n_rays), torch.full_like(i, 0x9E3779B9))
+    inv24 = 1.0 / (1 << 24)
+    xy = torch.stack([h0 >> 8, h1 >> 8], dim=-1).to(torch.float32) * inv24
+    jitter_u = (h2 >> 8).to(torch.float32) * inv24
+    if cfg.snap_to_pixel_centers_in_training:
+        res = torch.cat([torch.full_like(xy[:, :1], w), torch.full_like(xy[:, :1], h)], dim=1)
+        xy = (torch.minimum(torch.clamp(torch.floor(xy * res), min=0), res - 1) + 0.5) / res
+
+    xf = xforms[img]  # (R, 3, 4)
+    # float32 scalars, as JAX takes them (a Python float multiplies in float64)
+    fx, fy, wf, hf = (torch.tensor(float(v), dtype=torch.float32) for v in (*focal_length, w, h))
+    d_cam = torch.stack(
+        [
+            (xy[:, 0] - principal_point[0]) * wf / fx,
+            (xy[:, 1] - principal_point[1]) * hf / fy,
+            torch.ones((n_rays,), dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    )
+    d = dot_fma(xf[:, :, :3], d_cam[:, None, :])
+    d = d / sqrt_rn(dot_fma(d, d))[:, None]
+    o = xf[:, :, 3]
+
+    tmin, tmax = aabb.ray_intersect(o, d)
+    tmin = torch.clamp(tmin, min=cfg.near_distance)
+    dt = cfg.min_cone_stepsize
+    startt = tmin + lattice_dt(cfg, tmin) * jitter_u  # march-start jitter (cu:385)
+    hits = tmin < tmax
+
+    if occ_aabb is not None and cfg.cone_angle_constant == 0.0:
+        k0 = occupied_window_start(occ_aabb, o, d, startt, dt, n_lattice)
+    else:
+        # the window start assumes the arithmetic lattice; the cone lattice
+        # marches whole
+        n_window = n_lattice
+        k0 = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
+    # the coarse premask, and/or its controller stat: one halo-pooled lookup
+    # per 8-point segment, conservative for the jittered march
+    coarse_ok = cfg.cone_angle_constant == 0.0 and occ_aabb is not None and n_window % SEG == 0
+    seg_on = n_seg_cap > 0 and coarse_ok
+    seg_count_hi = torch.zeros((), dtype=torch.int64, device=dev)
+    if seg_on or (want_seg_stat and coarse_ok):
+        n_seg = n_window // SEG
+        cmask = coarse_segment_mask(cfg, pooled_occupancy(cfg, occupancy), o, d, startt, n_seg, k0) & hits[:, None]
+        k_hi = min(int(0.995 * n_rays), n_rays - 1)
+        seg_count_hi = torch.sort(cmask.sum(dim=1)).values[k_hi]
+
+    # one packed 3^3 word answers an 8-point group's occupancy (built in-step)
+    packed = packed_neighborhood(cfg, occupancy) if packed_march_supported(cfg) else None
+
+    if seg_on:
+        j_seg = torch.arange(n_seg, dtype=torch.int64, device=dev)[None, :]
+        seg_idx = torch.sort(torch.where(cmask, j_seg, n_seg), dim=1).values[:, :n_seg_cap]
+        counts, masks, lat_all = count_samples_segments(cfg, aabb, occupancy, o, d, startt, k0, seg_idx, packed=packed)
+        s_pad = min(s_pad, n_seg_cap * SEG)  # counts never exceed the kept width
+    else:
+        counts, masks = count_samples(cfg, aabb, occupancy, o, d, startt, return_masks=True, k0=k0, n_window=n_window, packed=packed)
+    masks = masks & hits[:, None]
+    counts = torch.where(hits, counts, 0)
+    n_samples = counts.sum()
+    max_ray_count = counts.max()  # before truncation: the s_pad controller sees the tail
+    counts = torch.clamp(counts, max=s_pad)  # truncate long rays (cu:408)
+
+    bucketed = 0 < s_short < s_pad and 0 < n_long < n_rays
+    if not bucketed:
+        s_short = s_pad
+
+    # whole-ray drops: zero samples, longer than the bucket, or overflowing
+    # the flat budget (cu:408, cu:414-416; dropped rays keep their holes)
+    if bucketed:
+        # stable, as jnp.argsort: ties keep the lower ray first
+        order = torch.argsort(-counts, stable=True)
+        # ascending, as build_layout's rank inversion needs
+        sel_long = torch.sort(order[:n_long]).values
+        is_long = torch.zeros((n_rays,), dtype=torch.bool, device=dev).index_fill_(0, sel_long, True)
+        count_at_split = counts[order[n_long : n_long + 1]][0]  # a 0-dim tensor index would sync
+        ray_valid = (counts > 0) & torch.where(is_long, counts <= s_pad, counts <= s_short)
+    else:
+        sel_long = None
+        is_long = torch.zeros((n_rays,), dtype=torch.bool, device=dev)
+        # the longest count outside the would-be top bucket, so s_short can re-engage
+        if 0 < n_long < n_rays:
+            count_at_split = torch.topk(counts, n_long + 1).values[n_long]
+        else:
+            count_at_split = max_ray_count
+        ray_valid = (counts > 0) & (counts <= s_pad)
+    counts_res = torch.where(ray_valid, counts, 0)
+    base = torch.cumsum(counts_res, 0) - counts_res
+    ray_valid = ray_valid & (base + counts_res <= capacity)
+    valid_short = ray_valid & ~is_long
+    layout = build_layout(base, counts, valid_short, capacity, s_short)
+    layout_long = valid_long = None
+    if bucketed:
+        valid_long = (ray_valid & is_long)[sel_long]
+        layout_long = build_layout(base[sel_long], counts[sel_long], valid_long, capacity, s_pad)
+
+    # per-ray compaction: the occupied window ordinals ascend, so a row sort
+    # of where(mask, ordinal, sentinel) left-justifies them in march order;
+    # on the two-level march the columns carry their own ordinals (lat_all)
+    if seg_on:
+        lat_vals, sentinel = lat_all, (n_seg + 1) * SEG
+    else:
+        lat_vals, sentinel = torch.arange(n_window, dtype=torch.int64, device=dev)[None, :], n_window
+    keys = torch.where(masks & ray_valid[:, None], lat_vals, sentinel)
+    lat_pad = torch.sort(keys, dim=1).values[:, :s_pad]  # (R, s_pad), k0-relative
+
+    # flat network inputs, closed-form from the lattice ordinal k0 + j; a
+    # full-width layout maps each flat slot to (ray, j)
+    lay_all = build_layout(base, counts, ray_valid, capacity, s_pad) if bucketed else layout
+    rid = lay_all.ray_ids
+    flat_lat = torch.where(lay_all.flat_valid, k0[rid] + lat_pad[rid, lay_all.pos_in_ray], 0)
+    # here XLA keeps the multiply and the add apart (no fused multiply-add)
+    if cfg.cone_angle_constant == 0.0:
+        flat_t = startt[rid] + flat_lat.to(torch.float32) * torch.tensor(dt, dtype=torch.float32)
+    else:
+        flat_t = lattice_t(cfg, startt[rid], flat_lat)
+    flat_pos = o[rid] + flat_t[:, None] * d[rid]
+    flat_dirs = (d[rid] + 1.0) * 0.5
+
+    dt_pad = dt_pad_long = None
+    if cfg.cone_angle_constant != 0.0:
+        dts = lattice_dt(cfg, lattice_t(cfg, startt[:, None], k0[:, None] + lat_pad))  # (R, s_pad)
+        dt_pad = dts[:, :s_short]
+        if bucketed:
+            dt_pad_long = dts[sel_long]
+
+    return TrainingBatch(
+        rays_o=o,
+        rays_d=d,
+        rgba=read_rgba(images, xy, img),
+        ray_valid=ray_valid,
+        layout=layout,
+        layout_long=layout_long,
+        sel_long=sel_long,
+        valid_long=valid_long,
+        valid_short=valid_short,
+        pos=aabb.relative_pos(flat_pos),
+        dirs=flat_dirs,
+        dt_pad=dt_pad,
+        dt_pad_long=dt_pad_long,
+        n_samples=n_samples,
+        max_ray_count=max_ray_count,
+        count_at_split=count_at_split,
+        seg_count_hi=seg_count_hi,
+        image_index=img,
+        xy=xy,
+    )
