@@ -30,10 +30,7 @@ import torch.nn.functional as F
 
 from ngp_tpu_torch.ops import kernels
 from ngp_tpu_torch.ops.mlp import bf16_round
-
-# launches of each CUDA kernel in this process (a wrapper adds one per launch)
-N_LAUNCHES = 0  # fused_mlp_fwd
-N_LAUNCHES_BWD = 0  # fused_mlp_bwd
+from ngp_tpu_torch.utils import profiling
 
 RGB_OUT = 3
 
@@ -349,7 +346,6 @@ def _aligned(x: torch.Tensor, cols: int) -> torch.Tensor:
 
 def fused_mlp_fwd_cuda(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
     """Launch the forward kernel on the current stream: (rgb (N, 3), dens (N, dd))."""
-    global N_LAUNCHES
     device = enc.device
     _check(enc, "enc", fw.d_in_real, device)
     _check(sh, "sh", fw.d_sh_real, device)
@@ -369,7 +365,7 @@ def fused_mlp_fwd_cuda(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: CUDA error {err}")
-    N_LAUNCHES += 1
+    profiling.count("launches.fused_mlp_fwd")
     return rgb, dens[:, : fw.dd_real]
 
 
@@ -386,7 +382,6 @@ def fused_mlp_fwd(enc: torch.Tensor, sh: torch.Tensor, fw: FusedWeights):
 def fused_mlp_bwd_cuda(enc, sh, g_rgb, g_dens, fw: FusedWeights):
     """Launch the backward kernel (and its fixed-order reduction of the
     blocks' partial weight gradients) on the current stream."""
-    global N_LAUNCHES_BWD
     device = enc.device
     n = enc.shape[0]
     _check(enc, "enc", fw.d_in_real, device)
@@ -412,7 +407,7 @@ def fused_mlp_bwd_cuda(enc, sh, g_rgb, g_dens, fw: FusedWeights):
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: CUDA error {err}")
-    N_LAUNCHES_BWD += 1
+    profiling.count("launches.fused_mlp_bwd")
     return d_enc[:, : fw.d_in_real], grads
 
 

@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from ngp_tpu_torch.ops import kernels
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.config import HashEncodingConfig
 from ngp_tpu_torch.utils.fma import fma
 from ngp_tpu_torch.utils.qmc import mul32
@@ -59,11 +60,6 @@ _PRIME_Y = 2654435761
 _PRIME_Z = 805459861
 
 VARIANTS = ("oadd", "xadd", "tcnn")  # csrc/hash_grid.cuh Variant, in this order
-
-# launches of each CUDA kernel in this process (a wrapper adds one per launch)
-N_LAUNCHES_HASH_FWD = 0  # hash_encode_fwd
-N_LAUNCHES_HASH_BWD_STOCHASTIC = 0  # hash_encode_bwd, stochastic entry
-N_LAUNCHES_HASH_BWD_EXACT = 0  # hash_encode_bwd, exact entry
 
 MAX_LEVELS = 32  # csrc/hash_grid.cuh kMaxLevels
 KERNEL_FEATURES = (1, 2, 4, 8)  # feature widths the kernels are built for
@@ -476,7 +472,6 @@ def _check_kernel_inputs(spec: HashGridSpec, pos: torch.Tensor, **tensors):
 
 def hash_encode_cuda(table: torch.Tensor, pos: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
     """Launch the gather kernel on the current stream: (N, L*F) fp32."""
-    global N_LAUNCHES_HASH_FWD
     _check_kernel_inputs(spec, pos, table=table)
     n = pos.shape[0]
     out = torch.empty((n, spec.n_output_dims), dtype=torch.float32, device=pos.device)
@@ -489,7 +484,7 @@ def hash_encode_cuda(table: torch.Tensor, pos: torch.Tensor, spec: HashGridSpec)
     )
     if err != 0:
         raise RuntimeError(f"hash_encode_fwd launch failed: CUDA error {err}")
-    N_LAUNCHES_HASH_FWD += 1
+    profiling.count("launches.hash_encode_fwd")
     return out
 
 
@@ -497,7 +492,6 @@ def hash_bwd_exact_cuda(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) 
     """Launch the exact scatter of spec.variant on the current stream:
     (L, T_pad, F) fp32. The zero fill is a launch on the same stream, so a
     CUDA graph captures it with the scatter (from the graph's pool)."""
-    global N_LAUNCHES_HASH_BWD_EXACT
     _check_kernel_inputs(spec, pos, g=g)
     n = pos.shape[0]
     d = torch.zeros((spec.n_levels, spec.padded_size, spec.n_features), dtype=torch.float32, device=pos.device)
@@ -510,14 +504,13 @@ def hash_bwd_exact_cuda(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) 
     )
     if err != 0:
         raise RuntimeError(f"hash_encode_bwd (exact) launch failed: CUDA error {err}")
-    N_LAUNCHES_HASH_BWD_EXACT += 1
+    profiling.count("launches.hash_encode_bwd_exact")
     return d
 
 
 def hash_bwd_oadd_stochastic_cuda(pos: torch.Tensor, spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
     """Launch the stochastic scatter on the current stream: (L, T_pad, F) fp32.
     oadd only."""
-    global N_LAUNCHES_HASH_BWD_STOCHASTIC
     _require_oadd_stochastic(spec)
     _check_kernel_inputs(spec, pos, g=g)
     n = pos.shape[0]
@@ -533,7 +526,7 @@ def hash_bwd_oadd_stochastic_cuda(pos: torch.Tensor, spec: HashGridSpec, g: torc
     )
     if err != 0:
         raise RuntimeError(f"hash_encode_bwd (stochastic) launch failed: CUDA error {err}")
-    N_LAUNCHES_HASH_BWD_STOCHASTIC += 1
+    profiling.count("launches.hash_encode_bwd_stochastic")
     return d
 
 

@@ -9,11 +9,13 @@ Nothing here runs at import.
 
 import ctypes
 import hashlib
-import importlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from ngp_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "ngp_tpu_torch"
@@ -49,6 +51,7 @@ def _command(name: str, out: Path):
 def build_all(names=SOURCES) -> dict:
     """Compile every named source not built yet, one nvcc each, all started
     together; returns {name: library path}. Raises on the first failure."""
+    t0 = time.perf_counter()
     todo = {n: library_path(n) for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -64,6 +67,8 @@ def build_all(names=SOURCES) -> dict:
             continue
         BUILD_LOGS[name] = err
         os.replace(tmp, so)
+    profiling.count("kernels.builds", len(procs))
+    profiling.add("kernels.build_s", time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return todo
@@ -76,28 +81,23 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-# each kernel wrapper's launch count: (module, attribute) by entry point
-LAUNCH_COUNTERS = {
-    "fused_mlp_fwd": ("ngp_tpu_torch.ops.fused_mlp", "N_LAUNCHES"),
-    "fused_mlp_bwd": ("ngp_tpu_torch.ops.fused_mlp", "N_LAUNCHES_BWD"),
-    "adam_ema": ("ngp_tpu_torch.train.optimizer", "N_LAUNCHES"),
-    "hash_encode_fwd": ("ngp_tpu_torch.ops.hash_encoding", "N_LAUNCHES_HASH_FWD"),
-    "hash_encode_bwd_stochastic": ("ngp_tpu_torch.ops.hash_encoding", "N_LAUNCHES_HASH_BWD_STOCHASTIC"),
-    "hash_encode_bwd_exact": ("ngp_tpu_torch.ops.hash_encoding", "N_LAUNCHES_HASH_BWD_EXACT"),
-}
+# the kernels whose wrappers count their launches (profiling counter "launches.<name>")
+LAUNCH_COUNTERS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_stochastic",
+                   "hash_encode_bwd_exact")
 
 
 def launch_counts() -> dict:
     """Launches of each kernel so far in this process."""
-    return {name: getattr(importlib.import_module(mod), attr) for name, (mod, attr) in LAUNCH_COUNTERS.items()}
+    return {name: profiling.get(f"launches.{name}") for name in LAUNCH_COUNTERS}
 
 
 def set_launch_counts(counts: dict):
-    for name, (mod, attr) in LAUNCH_COUNTERS.items():
-        setattr(importlib.import_module(mod), attr, counts[name])
+    for name in LAUNCH_COUNTERS:
+        profiling.count(f"launches.{name}", counts[name] - profiling.get(f"launches.{name}"))
 
 
 def add_launch_counts(delta: dict):
     """Count the launches a replayed CUDA graph makes: the wrappers ran once,
     at the capture, which launched nothing."""
-    set_launch_counts({name: n + delta[name] for name, n in launch_counts().items()})
+    for name in LAUNCH_COUNTERS:
+        profiling.count(f"launches.{name}", delta[name])

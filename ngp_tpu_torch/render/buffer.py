@@ -6,6 +6,7 @@ tonemap), the same formulas; plain functions instead of jitted ones.
 
 import torch
 
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.color import linear_to_srgb, srgb_to_linear
 
 
@@ -52,8 +53,11 @@ def tonemap_curve(x: torch.Tensor, curve: str = "Identity") -> torch.Tensor:
 
 
 def tonemap(accum, exposure: float, background_color, color_space: str, output_color_space: str, curve: str = "Identity"):
-    """accum (H,W,4) -> final (H,W,4); background_color is a 4-vector in sRGB."""
-    bg = torch.as_tensor(background_color, dtype=torch.float32, device=accum.device)
+    """accum (H,W,4) -> final (H,W,4); background_color is a 4-vector in sRGB
+    (one not yet a tensor is copied to the card: a frame's host sync
+    render.sync.background)."""
+    with profiling.host_sync("render", "background", int(not isinstance(background_color, torch.Tensor))):
+        bg = torch.as_tensor(background_color, dtype=torch.float32, device=accum.device)
     rgb = accum[..., :3] * (2.0**exposure)
     a = accum[..., 3:4]
 

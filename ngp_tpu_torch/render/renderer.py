@@ -74,10 +74,19 @@ off) evaluate each pass at its own jittered points where the cover mask and
 the box test both hold. The frame is the passes' mean in accum_space
 (linear, or sRGB for the colour), i.e. render/buffer.accumulate over the
 passes. The rays are composited in blocks so that the (rays, passes, round
-width) temporaries stay near SPP_BLOCK_SLOTS entries. The shared frame's
-march, network and composite run under the profiler labels spp_march,
-spp_network and spp_composite, so a trace (chip_smoke.py) gives each one's
-device time.
+width) temporaries stay near SPP_BLOCK_SLOTS entries.
+
+Spans (utils/profiling.py), on every path, so that a trace gives each
+stage's device time: spp_march (the camera rays, the frame geometry, the
+coarse pass, each round's march and its index bookkeeping), spp_network
+(the network on a round's samples, written into the round's outputs) and
+spp_composite (the compositing, the accumulation and, at n_spp = 1, the
+shade; at n_spp > 1 the shared composite's span covers its rounds alone).
+Every host<->device synchronisation of a frame (each nonzero, boolean-mask
+index, int() of a device value and blocking copy to the card) sits in a
+render.sync.<site> span at the statement that synchronises, in this module
+or in its callee (utils/qmc.py's ld_random_val, render/buffer.py's
+tonemap), and counts into the render.host_syncs counters.
 
 With `mesh` of size > 1 (parallel/mesh.py; ngp_tpu's _dp_render_tile,
 :658-684 and :1063-1104), every rank plans the whole frame (window, coarse
@@ -101,7 +110,6 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ngp_tpu_torch.grid.occupancy import occupied_aabb, packed_neighborhood, pooled_occupancy
 from ngp_tpu_torch.models.ngp import NGPModel, apply_density_activation, apply_rgb_activation
@@ -119,6 +127,7 @@ from ngp_tpu_torch.sampling.lattice import (
     segment_points,
     window_start_inside,
 )
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.aabb import AABB, warp_dt
 from ngp_tpu_torch.utils.color import linear_to_srgb, srgb_to_linear
 from ngp_tpu_torch.utils.config import NGPConfig
@@ -139,9 +148,10 @@ def camera_rays(cam: torch.Tensor, w: int, h: int, focal_length, principal_point
     """Pixel-grid rays for subpixel offset `off`: origins and unit directions
     (W*H, 3), row-major over (y, x). cam (3, 4) float32 on the target device."""
     dev = cam.device
-    f = torch.as_tensor(focal_length, dtype=torch.float32, device=dev)
-    pp = torch.as_tensor(principal_point, dtype=torch.float32, device=dev)
-    off = torch.as_tensor(off, dtype=torch.float32, device=dev)
+    with profiling.host_sync("render", "camera_rays", 3):  # each copied to the card
+        f = torch.as_tensor(focal_length, dtype=torch.float32, device=dev)
+        pp = torch.as_tensor(principal_point, dtype=torch.float32, device=dev)
+        off = torch.as_tensor(off, dtype=torch.float32, device=dev)
     # (i + off) / w - pp as XLA compiles it: the division by the constant
     # becomes a product with float32(1 / w), contracted with the subtraction
     # into one fused multiply-add (so the rays are ngp_tpu's to the bit)
@@ -183,11 +193,13 @@ def frame_geometry(cfg, o: torch.Tensor, d: torch.Tensor, occ_aabb: torch.Tensor
         return torch.amax(torch.minimum(t1, t2), dim=-1), torch.amin(torch.maximum(t1, t2), dim=-1)
 
     box = occ_aabb.to(device=o.device, dtype=torch.float32)
-    margin = torch.tensor(dt + 1.0 / cfg.grid_size, dtype=torch.float32, device=o.device)
+    with profiling.host_sync("render", "frame_geometry"):  # copied to the card
+        margin = torch.tensor(dt + 1.0 / cfg.grid_size, dtype=torch.float32, device=o.device)
     occ_lo, occ_hi = slab(box[0] - margin, box[1] + margin)
     scene = AABB.scene(cfg.aabb_scale)
     s_lo = torch.clamp(slab(scene.lo_t(o), scene.hi_t(o))[0], min=0.05)
-    inv_dt = torch.tensor(1.0 / dt, dtype=torch.float32, device=o.device)
+    with profiling.host_sync("render", "frame_geometry"):
+        inv_dt = torch.tensor(1.0 / dt, dtype=torch.float32, device=o.device)
     k0 = torch.clamp(torch.floor((occ_lo - s_lo) * inv_dt) - 2.0, 0.0, float(n_lat))
     start = torch.maximum(occ_lo, s_lo)
     span = torch.minimum(torch.clamp(torch.ceil((occ_hi - start) * inv_dt) + 4.0, min=0.0), n_lat - k0)
@@ -220,7 +232,11 @@ class SegmentPlan(NamedTuple):
     n_lat: int | None = None
 
     def rows(self, sel) -> "SegmentPlan":
-        return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel], self.n_lat)
+        """The plan of the rows `sel`; a boolean mask indexes each of the
+        four tensors, a host sync each."""
+        mask = isinstance(sel, torch.Tensor) and sel.dtype == torch.bool
+        with profiling.host_sync("render", "plan_rows", 4 if mask else 0):
+            return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel], self.n_lat)
 
 
 def segment_plan(keep, w0, s0, n_rounds: int, limit=None, n_lat: int | None = None) -> SegmentPlan:
@@ -329,9 +345,11 @@ class Renderer:
         envmap (H_e, W_e, 4), where given, lies behind every ray."""
         scfg = self.config.sampler
         w, h = resolution
-        cam = torch.as_tensor(camera_matrix, dtype=torch.float32).to(occupancy.device)
-        off = ld_random_pixel_offset(0 if scfg.snap_to_pixel_centers_in_rendering else int(spp))
-        o, d = camera_rays(cam, w, h, focal_length, principal_point, off.tolist())
+        with profiling.span("spp_march"):
+            with profiling.host_sync("render", "camera"):
+                cam = torch.as_tensor(camera_matrix, dtype=torch.float32).to(occupancy.device)
+            off = ld_random_pixel_offset(0 if scfg.snap_to_pixel_centers_in_rendering else int(spp))
+            o, d = camera_rays(cam, w, h, focal_length, principal_point, off.tolist())
         out = self.render_rays(occupancy, cam, o, d, spp, render_mode, scene_scale, occ_aabb, n_spp, accum_space, envmap)
         return out.reshape(h, w, 4)
 
@@ -412,7 +430,9 @@ class Renderer:
         self.last_frame_points += keep.numel()
         plan = segment_plan(keep, w0, s0, n_rounds, limit, n_lat)
         cull = plan.nxt[:, 0] < n_rounds
-        return ids[cull], plan.rows(cull)
+        with profiling.host_sync("render", "cull"):  # a boolean-mask index
+            ids = ids[cull]
+        return ids, plan.rows(cull)
 
     def _render_pass(self, occupancy, occ_aabb, o, d, cam, spp, render_mode, depth_scale):
         """One exact pass over all rays -> (N, 4)."""
@@ -423,87 +443,99 @@ class Renderer:
         thresh = self.config.render.transmittance_threshold
         n = o.shape[0]
         n_lat = n_lattice_points(scfg)
-        t0, alive = ray_start(aabb, o, d)
-        seed = (torch.arange(n, dtype=torch.int64, device=dev) * 786433) & 0xFFFFFFFF
-        startt = fma(ld_random_val(spp, seed), dt, t0)
-        dirs_w = (d + 1.0) * 0.5
-        cam_fwd, cam_org = cam[:, 2], cam[:, 3]
+        with profiling.span("spp_march"):
+            t0, alive = ray_start(aabb, o, d)
+            seed = (torch.arange(n, dtype=torch.int64, device=dev) * 786433) & 0xFFFFFFFF
+            startt = fma(ld_random_val(spp, seed), dt, t0)
+            dirs_w = (d + 1.0) * 0.5
+            cam_fwd, cam_org = cam[:, 2], cam[:, 3]
 
-        rgb_acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        opac = torch.zeros((n,), dtype=torch.float32, device=dev)
-        trans = torch.ones((n,), dtype=torch.float32, device=dev)
-        taken = torch.zeros((n,), dtype=torch.int64, device=dev)
-        processed = torch.zeros((n,), dtype=torch.int64, device=dev)  # included samples (Cost)
-        plan = packed = None
-        if scfg.cone_angle_constant == 0.0:
-            # the window, the coarse premask and the cull; a ray whose march
-            # starts outside the box samples nothing
-            hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
-            start_in = window_start_inside(scfg, aabb, o, d, startt, torch.zeros_like(k0))
-            ids = torch.nonzero(hit & alive & start_in).squeeze(1)
-            if ids.numel():
-                # rounds aligned at ordinal 0, as the full march's chunks: the
-                # window starts at k0 rounded down to a whole segment
-                w0 = k0[ids] - k0[ids] % SEG
-                n_seg = max(int(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG)), 1)
-                ids, plan = self._share(
-                    *self._kept_segments(occupancy, o, d, t0, ids, w0, n_seg, w0 // SEG, n_lat // CHUNK, n_lat=n_lat)
-                )
-                live = torch.arange(ids.numel(), device=dev)
-                rnd = plan.nxt[:, 0]
-                if packed_march_supported(scfg):
-                    packed = packed_neighborhood(scfg, occupancy)
-        else:
-            # the cone lattice: the whole lattice, rays that miss the occupied box culled
-            lo, hi = ray_box_span(occ_aabb.to(device=dev, dtype=torch.float32), o, d)
-            ids, _ = self._share(torch.nonzero(alive & (hi >= torch.clamp(lo, min=0.05))).squeeze(1), None)
+            rgb_acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            opac = torch.zeros((n,), dtype=torch.float32, device=dev)
+            trans = torch.ones((n,), dtype=torch.float32, device=dev)
+            taken = torch.zeros((n,), dtype=torch.int64, device=dev)
+            processed = torch.zeros((n,), dtype=torch.int64, device=dev)  # included samples (Cost)
+            plan = packed = None
+            if scfg.cone_angle_constant == 0.0:
+                # the window, the coarse premask and the cull; a ray whose march
+                # starts outside the box samples nothing
+                hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
+                start_in = window_start_inside(scfg, aabb, o, d, startt, torch.zeros_like(k0))
+                with profiling.host_sync("render", "hit_rays"):
+                    ids = torch.nonzero(hit & alive & start_in).squeeze(1)
+                if ids.numel():
+                    # rounds aligned at ordinal 0, as the full march's chunks: the
+                    # window starts at k0 rounded down to a whole segment
+                    w0 = k0[ids] - k0[ids] % SEG
+                    with profiling.host_sync("render", "n_seg"):
+                        n_seg = max(int(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG)), 1)
+                    ids, plan = self._share(
+                        *self._kept_segments(occupancy, o, d, t0, ids, w0, n_seg, w0 // SEG, n_lat // CHUNK, n_lat=n_lat)
+                    )
+                    live = torch.arange(ids.numel(), device=dev)
+                    rnd = plan.nxt[:, 0]
+                    if packed_march_supported(scfg):
+                        packed = packed_neighborhood(scfg, occupancy)
+            else:
+                # the cone lattice: the whole lattice, rays that miss the occupied box culled
+                lo, hi = ray_box_span(occ_aabb.to(device=dev, dtype=torch.float32), o, d)
+                with profiling.host_sync("render", "hit_rays"):
+                    ids, _ = self._share(torch.nonzero(alive & (hi >= torch.clamp(lo, min=0.05))).squeeze(1), None)
         for i0 in range(0, n_lat, CHUNK):
             if ids.numel() == 0:
                 break
-            if plan is None:
-                mask, t, pos, inside_end = march_chunk(scfg, aabb, occupancy, o[ids], d[ids], startt[ids], taken[ids], i0)
-            else:
-                mask, t, pos, _, exited = march_round(
-                    scfg, aabb, occupancy, packed, plan, live, rnd, o[ids], d[ids], startt[ids], taken[ids]
-                )
-            self.last_frame_points += mask.numel()
-            rows, cols = torch.nonzero(mask, as_tuple=True)
-            self.last_frame_samples += rows.numel()
-            sigma = torch.zeros(mask.shape, dtype=torch.float32, device=dev)
-            rgb = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
-            if rows.numel():
-                sig_s, rgb_s = self._evaluate(
-                    aabb.relative_pos(pos[rows, cols]), dirs_w[ids[rows]], normals=render_mode == "Normals"
-                )
-                sigma[rows, cols] = sig_s
-                rgb[rows, cols] = rgb_s
-            dts = lattice_dt(scfg, t)
-            if render_mode == "Depth":
-                z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
-                rgb = z[..., None].expand(-1, -1, 3)
-            elif render_mode == "Distance":
-                z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
-                rgb = z[..., None].expand(-1, -1, 3)
-            elif render_mode == "Stepsize":
-                rgb = warp_dt(dts, dt, scfg.n_cascades)[..., None].expand(-1, -1, 3)
+            with profiling.span("spp_march"):
+                if plan is None:
+                    mask, t, pos, inside_end = march_chunk(scfg, aabb, occupancy, o[ids], d[ids], startt[ids], taken[ids], i0)
+                else:
+                    mask, t, pos, _, exited = march_round(
+                        scfg, aabb, occupancy, packed, plan, live, rnd, o[ids], d[ids], startt[ids], taken[ids]
+                    )
+                self.last_frame_points += mask.numel()
+                with profiling.host_sync("render", "samples"):
+                    rows, cols = torch.nonzero(mask, as_tuple=True)
+                self.last_frame_samples += rows.numel()
+            with profiling.span("spp_network"):
+                sigma = torch.zeros(mask.shape, dtype=torch.float32, device=dev)
+                rgb = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
+                if rows.numel():
+                    sig_s, rgb_s = self._evaluate(
+                        aabb.relative_pos(pos[rows, cols]), dirs_w[ids[rows]], normals=render_mode == "Normals"
+                    )
+                    sigma[rows, cols] = sig_s
+                    rgb[rows, cols] = rgb_s
+            with profiling.span("spp_composite"):
+                dts = lattice_dt(scfg, t)
+                if render_mode == "Depth":
+                    z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
+                    rgb = z[..., None].expand(-1, -1, 3)
+                elif render_mode == "Distance":
+                    z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
+                    rgb = z[..., None].expand(-1, -1, 3)
+                elif render_mode == "Stepsize":
+                    rgb = warp_dt(dts, dt, scfg.n_cascades)[..., None].expand(-1, -1, 3)
 
-            alpha, include, wgt, tr = composite_weights(mask, torch.where(mask, sigma * dts, 0.0), trans[ids], thresh)
-            if render_mode == "AO":
-                rgb = alpha[..., None].expand(-1, -1, 3)
-            rgb_acc[ids] += (wgt[..., None] * rgb).sum(dim=1)
-            opac[ids] += wgt.sum(dim=1)
-            trans[ids] = tr
-            processed[ids] += include.sum(dim=1)
-            tk = taken[ids] + mask.sum(dim=1)
-            taken[ids] = tk
-            more = (tr >= thresh) & (tk < scfg.maximum_marching_steps)
-            if plan is None:
-                ids = ids[more & inside_end]
-            else:
-                nxt = plan.nxt[live, rnd + 1]
-                more = more & ~exited & (nxt < plan.nxt.shape[1] - 1)
-                ids, live, rnd = ids[more], live[more], nxt[more]
-        return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
+                alpha, include, wgt, tr = composite_weights(mask, torch.where(mask, sigma * dts, 0.0), trans[ids], thresh)
+                if render_mode == "AO":
+                    rgb = alpha[..., None].expand(-1, -1, 3)
+                rgb_acc[ids] += (wgt[..., None] * rgb).sum(dim=1)
+                opac[ids] += wgt.sum(dim=1)
+                trans[ids] = tr
+                processed[ids] += include.sum(dim=1)
+            with profiling.span("spp_march"):
+                tk = taken[ids] + mask.sum(dim=1)
+                taken[ids] = tk
+                more = (tr >= thresh) & (tk < scfg.maximum_marching_steps)
+                if plan is None:
+                    with profiling.host_sync("render", "live_rays"):
+                        ids = ids[more & inside_end]
+                else:
+                    nxt = plan.nxt[live, rnd + 1]
+                    more = more & ~exited & (nxt < plan.nxt.shape[1] - 1)
+                    with profiling.host_sync("render", "live_rays", 3):
+                        ids, live, rnd = ids[more], live[more], nxt[more]
+        with profiling.span("spp_composite"):
+            return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
 
     def _render_passes(self, occupancy, occ_aabb, o, d, cam, spp, n_spp, render_mode, depth_scale, accum_space, env):
         """Passes spp .. spp + n_spp - 1 from one cover march -> (N, 4), their
@@ -512,25 +544,29 @@ class Renderer:
         scfg = self.config.sampler
         aabb = AABB.scene(scfg.aabb_scale)
         n = o.shape[0]
-        hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
-        t0, alive = ray_start(aabb, o, d)
-        _, tmax = aabb.ray_intersect(o, d)
-        start_in = window_start_inside(scfg, aabb, o, d, t0, k0, jitter_cover=True)
-        ids = torch.nonzero(hit & alive & start_in).squeeze(1)
-        rgb_acc = torch.zeros((n, n_spp, 3), dtype=torch.float32, device=dev)
-        opac = torch.zeros((n, n_spp), dtype=torch.float32, device=dev)
-        processed = torch.zeros((n, n_spp), dtype=torch.int64, device=dev)
+        with profiling.span("spp_march"):
+            hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
+            t0, alive = ray_start(aabb, o, d)
+            _, tmax = aabb.ray_intersect(o, d)
+            start_in = window_start_inside(scfg, aabb, o, d, t0, k0, jitter_cover=True)
+            with profiling.host_sync("render", "hit_rays"):
+                ids = torch.nonzero(hit & alive & start_in).squeeze(1)
+            rgb_acc = torch.zeros((n, n_spp, 3), dtype=torch.float32, device=dev)
+            opac = torch.zeros((n, n_spp), dtype=torch.float32, device=dev)
+            processed = torch.zeros((n, n_spp), dtype=torch.int64, device=dev)
+            if ids.numel():
+                # rounds aligned at k0, as the cover march's chunks, up to the
+                # window's span; each round looks one segment ahead
+                limit = torch.ceil(span[ids] / CHUNK).to(torch.int64)
+                with profiling.host_sync("render", "n_rounds"):
+                    n_rounds = int(limit.max())
+                ids, plan = self._share(*self._kept_segments(
+                    occupancy, o, d, t0, ids, k0[ids], RANGE_SEGS * n_rounds + 1, torch.zeros_like(limit), n_rounds, limit
+                ))
+                seed = (ids * 786433) & 0xFFFFFFFF
+                u = torch.stack([ld_random_val(spp + s, seed) for s in range(n_spp)], dim=-1)  # (R, P) start jitter
+                packed = packed_neighborhood(scfg, occupancy)
         if ids.numel():
-            # rounds aligned at k0, as the cover march's chunks, up to the
-            # window's span; each round looks one segment ahead
-            limit = torch.ceil(span[ids] / CHUNK).to(torch.int64)
-            n_rounds = int(limit.max())
-            ids, plan = self._share(*self._kept_segments(
-                occupancy, o, d, t0, ids, k0[ids], RANGE_SEGS * n_rounds + 1, torch.zeros_like(limit), n_rounds, limit
-            ))
-            seed = (ids * 786433) & 0xFFFFFFFF
-            u = torch.stack([ld_random_val(spp + s, seed) for s in range(n_spp)], dim=-1)  # (R, P) start jitter
-            packed = packed_neighborhood(scfg, occupancy)
             share = self.share_spp_evals and render_mode == "Shade"
             per_pass_colour = not share and render_mode in ("Shade", "Normals")
             block = max(1, SPP_BLOCK_SLOTS // (n_spp * CHUNK * (4 if per_pass_colour else 1)))
@@ -573,34 +609,35 @@ class Renderer:
         live = torch.arange(R, device=dev)
         rnd = plan.nxt[:, 0]
         while live.numel():
-            with record_function("spp_march"):
+            with profiling.span("spp_march"):
                 mask, t, pos, _, exited = march_round(
                     scfg, aabb, occupancy, packed, plan, live, rnd, o[live], d[live], t0[live], taken[live], lookahead=1,
                     jitter_cover=True,
                 )
-            self.last_frame_points += mask.numel()
-            m, m_next = mask[:, :CHUNK], mask[:, CHUNK]
-            mi = m.to(torch.int64)
-            q = taken[live][:, None] + torch.cumsum(mi, dim=1) - mi  # the point's sample ordinal on its ray
-            # lerp partner: the next lattice point's evaluation when that point
-            # is a sample too, except at the last sample of a compositing round
-            adj = torch.cat([m[:, 1:], m_next[:, None]], dim=1) & ((q + 1) % SHARE_ROUND != 0)
-            ev = torch.cat([m, m[:, -1:] & adj[:, -1:]], dim=1)  # (nl, CHUNK + 1) points to evaluate
-            c_in = carried[live]
-            ev[:, 0] &= ~c_in
-            rows, cols = torch.nonzero(ev, as_tuple=True)
-            self.last_frame_samples += rows.numel()
-            sig = torch.zeros(ev.shape, dtype=torch.float32, device=dev)
-            rgb = torch.zeros(ev.shape + (3,), dtype=torch.float32, device=dev)
-            if rows.numel():
-                with record_function("spp_network"):
+                self.last_frame_points += mask.numel()
+                m, m_next = mask[:, :CHUNK], mask[:, CHUNK]
+                mi = m.to(torch.int64)
+                q = taken[live][:, None] + torch.cumsum(mi, dim=1) - mi  # the point's sample ordinal on its ray
+                # lerp partner: the next lattice point's evaluation when that point
+                # is a sample too, except at the last sample of a compositing round
+                adj = torch.cat([m[:, 1:], m_next[:, None]], dim=1) & ((q + 1) % SHARE_ROUND != 0)
+                ev = torch.cat([m, m[:, -1:] & adj[:, -1:]], dim=1)  # (nl, CHUNK + 1) points to evaluate
+                c_in = carried[live]
+                ev[:, 0] &= ~c_in
+                with profiling.host_sync("render", "samples"):
+                    rows, cols = torch.nonzero(ev, as_tuple=True)
+                self.last_frame_samples += rows.numel()
+            with profiling.span("spp_network"):
+                sig = torch.zeros(ev.shape, dtype=torch.float32, device=dev)
+                rgb = torch.zeros(ev.shape + (3,), dtype=torch.float32, device=dev)
+                if rows.numel():
                     sig[rows, cols], rgb[rows, cols] = self._evaluate(aabb.relative_pos(pos[rows, cols]), dirs_w[live[rows]])
-            sig[:, 0] = torch.where(c_in, carry_sig[live], sig[:, 0])
-            rgb[:, 0] = torch.where(c_in[:, None], carry_rgb[live], rgb[:, 0])
-            carried[live] = ev[:, CHUNK]
-            carry_sig[live], carry_rgb[live] = sig[:, CHUNK], rgb[:, CHUNK]
+                sig[:, 0] = torch.where(c_in, carry_sig[live], sig[:, 0])
+                rgb[:, 0] = torch.where(c_in[:, None], carry_rgb[live], rgb[:, 0])
+                carried[live] = ev[:, CHUNK]
+                carry_sig[live], carry_rgb[live] = sig[:, CHUNK], rgb[:, CHUNK]
 
-            with record_function("spp_composite"):
+            with profiling.span("spp_composite"):
                 s0, c0 = sig[:, :CHUNK], rgb[:, :CHUNK]
                 s1 = torch.where(adj, sig[:, 1:], s0)
                 c1 = torch.where(adj[..., None], rgb[:, 1:], c0)
@@ -613,11 +650,13 @@ class Renderer:
                 rgb_acc[live] += (1.0 - ul) * torch.bmm(wgt, c0) + ul * torch.bmm(wgt, c1)
                 opac[live] += wgt.sum(dim=2)
                 trans[live] = tr
-            tk = taken[live] + mi.sum(dim=1)
-            taken[live] = tk
-            nxt = plan.nxt[live, rnd + 1]
-            more = ~exited & (tr >= thresh).any(dim=1) & (tk < scfg.maximum_marching_steps) & (nxt < n_rounds)
-            live, rnd = live[more], nxt[more]
+            with profiling.span("spp_march"):
+                tk = taken[live] + mi.sum(dim=1)
+                taken[live] = tk
+                nxt = plan.nxt[live, rnd + 1]
+                more = ~exited & (tr >= thresh).any(dim=1) & (tk < scfg.maximum_marching_steps) & (nxt < n_rounds)
+                with profiling.host_sync("render", "live_rays", 2):
+                    live, rnd = live[more], nxt[more]
         return rgb_acc, opac, torch.zeros((R, P), dtype=torch.int64, device=dev)
 
     def _composite_passes(self, occupancy, packed, rays, cam, render_mode, depth_scale):
@@ -644,57 +683,64 @@ class Renderer:
         live = torch.arange(R, device=dev)
         rnd = plan.nxt[:, 0]
         while live.numel():
-            mask, _, _, idx, exited = march_round(
-                scfg, aabb, occupancy, packed, plan, live, rnd, o[live], d[live], t0[live], taken[live], jitter_cover=True
-            )
-            self.last_frame_points += mask.numel()
-            rows, cols = torch.nonzero(mask, as_tuple=True)  # cover points
-            ray = live[rows]
-            lat = idx[rows, cols].to(torch.float32)
-            tp = fma(lat[:, None], dt, startt[ray])  # (M, P) each pass's point
-            pos = fma(tp[..., None], d[ray][:, None, :], o[ray][:, None, :])  # (M, P, 3)
-            inside = aabb.contains(pos)
-            tr = trans[live]
-            # evaluate where the pass is still above the threshold
-            ev = inside & (tr[rows] >= thresh)
-            er, ep = torch.nonzero(ev, as_tuple=True)
-            self.last_frame_samples += er.numel()
-            nl = live.numel()
-            shape = (nl, P, CHUNK)
-            sig = torch.zeros(shape, dtype=torch.float32, device=dev)
-            valid = torch.zeros(shape, dtype=torch.bool, device=dev)
-            valid[rows, :, cols] = inside
-            if colour:
-                col = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
-            if er.numel():
-                s_e, c_e = self._evaluate(
-                    aabb.relative_pos(pos[er, ep]), dirs_w[ray[er]], normals=render_mode == "Normals"
+            with profiling.span("spp_march"):
+                mask, _, _, idx, exited = march_round(
+                    scfg, aabb, occupancy, packed, plan, live, rnd, o[live], d[live], t0[live], taken[live], jitter_cover=True
                 )
-                sig[rows[er], ep, cols[er]] = s_e
+                self.last_frame_points += mask.numel()
+                with profiling.host_sync("render", "cover_points"):
+                    rows, cols = torch.nonzero(mask, as_tuple=True)
+                ray = live[rows]
+                lat = idx[rows, cols].to(torch.float32)
+                tp = fma(lat[:, None], dt, startt[ray])  # (M, P) each pass's point
+                pos = fma(tp[..., None], d[ray][:, None, :], o[ray][:, None, :])  # (M, P, 3)
+                inside = aabb.contains(pos)
+                tr = trans[live]
+                # evaluate where the pass is still above the threshold
+                ev = inside & (tr[rows] >= thresh)
+                with profiling.host_sync("render", "samples"):
+                    er, ep = torch.nonzero(ev, as_tuple=True)
+                self.last_frame_samples += er.numel()
+                nl = live.numel()
+                shape = (nl, P, CHUNK)
+                valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+                valid[rows, :, cols] = inside
+            with profiling.span("spp_network"):
+                sig = torch.zeros(shape, dtype=torch.float32, device=dev)
                 if colour:
-                    col[rows[er], ep, cols[er]] = c_e
-            if render_mode in ("Depth", "Distance", "Stepsize"):
-                if render_mode == "Depth":
-                    z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
-                elif render_mode == "Distance":
-                    z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
-                else:
-                    z = warp_dt(torch.full(tp.shape, dt, device=dev), dt, scfg.n_cascades)
-                scalar = torch.zeros(shape, dtype=torch.float32, device=dev)
-                scalar[rows, :, cols] = z
+                    col = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+                if er.numel():
+                    s_e, c_e = self._evaluate(
+                        aabb.relative_pos(pos[er, ep]), dirs_w[ray[er]], normals=render_mode == "Normals"
+                    )
+                    sig[rows[er], ep, cols[er]] = s_e
+                    if colour:
+                        col[rows[er], ep, cols[er]] = c_e
+            with profiling.span("spp_composite"):
+                if render_mode in ("Depth", "Distance", "Stepsize"):
+                    if render_mode == "Depth":
+                        z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
+                    elif render_mode == "Distance":
+                        z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
+                    else:
+                        z = warp_dt(torch.full(tp.shape, dt, device=dev), dt, scfg.n_cascades)
+                    scalar = torch.zeros(shape, dtype=torch.float32, device=dev)
+                    scalar[rows, :, cols] = z
 
-            alpha, include, wgt, tr = composite_weights(valid, torch.where(valid, sig * dt, 0.0), tr, thresh)
-            if colour:
-                rgb_acc[live] += (wgt[..., None] * col).sum(dim=2)
-            elif render_mode != "Cost":
-                c = alpha if render_mode == "AO" else scalar
-                rgb_acc[live] += (wgt * c).sum(dim=2)[..., None].expand(-1, -1, 3)
-            opac[live] += wgt.sum(dim=2)
-            processed[live] += include.sum(dim=2)
-            trans[live] = tr
-            tk = taken[live] + mask.sum(dim=1)
-            taken[live] = tk
-            nxt = plan.nxt[live, rnd + 1]
-            more = ~exited & (tr >= thresh).any(dim=1) & (tk < scfg.maximum_marching_steps) & (nxt < n_rounds)
-            live, rnd = live[more], nxt[more]
+                alpha, include, wgt, tr = composite_weights(valid, torch.where(valid, sig * dt, 0.0), tr, thresh)
+                if colour:
+                    rgb_acc[live] += (wgt[..., None] * col).sum(dim=2)
+                elif render_mode != "Cost":
+                    c = alpha if render_mode == "AO" else scalar
+                    rgb_acc[live] += (wgt * c).sum(dim=2)[..., None].expand(-1, -1, 3)
+                opac[live] += wgt.sum(dim=2)
+                processed[live] += include.sum(dim=2)
+                trans[live] = tr
+            with profiling.span("spp_march"):
+                tk = taken[live] + mask.sum(dim=1)
+                taken[live] = tk
+                nxt = plan.nxt[live, rnd + 1]
+                more = ~exited & (tr >= thresh).any(dim=1) & (tk < scfg.maximum_marching_steps) & (nxt < n_rounds)
+                with profiling.host_sync("render", "live_rays", 2):
+                    live, rnd = live[more], nxt[more]
         return rgb_acc, opac, processed

@@ -53,6 +53,7 @@ from ngp_tpu_torch.train.snapshot import (
 )
 from ngp_tpu_torch.train.snapshot import save_snapshot as _save_snapshot
 from ngp_tpu_torch.train.trainer import Trainer, TrainingLoop
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.camera import focal_length_to_fov, fov_to_focal_length, opengl_to_opencv
 from ngp_tpu_torch.utils.config import NGPConfig, load_commented_json
 from ngp_tpu_torch.utils.device import resolve_device
@@ -171,6 +172,7 @@ class Testbed:
         self._pending_controller = None
         self._renderer: Renderer | None = None
         self._accum = None
+        self._host_frame = None  # the page-locked buffer a frame is read back through
         self._spp = 0
 
     @property
@@ -313,8 +315,11 @@ class Testbed:
         """testbed.cu:95-125: load the dataset onto the device and mark the
         density grid: cells no camera sees become -1 (untrainable), cells
         seen now but untrained before reset to 0, the rest keep their
-        density (a snapshot's grid survives)."""
-        ds = load_nerf_synthetic(data_path, scale, tuple(offset), device=self.device)
+        density (a snapshot's grid survives). Its seconds add to the
+        profiling counter data.load_s."""
+        with profiling.timed("data.load") as clock:
+            ds = load_nerf_synthetic(data_path, scale, tuple(offset), device=self.device)
+        profiling.add("data.load_s", clock.ms * 1e-3)
         self._dataset = ds
         self.scene_scale = scale
         self.scene_offset = tuple(offset)
@@ -329,9 +334,13 @@ class Testbed:
 
     def train(self, n_training_steps: int = 16, target_batch_size: int = 1 << 18):
         """One train() call: a grid update and n steps, then the renderer
-        takes the new EMA weights."""
+        takes the new EMA weights (a "train" request of utils/profiling.py)."""
         if self._loop is None:
             raise RuntimeError("load_training_data must be called before train()")
+        with profiling.request("train"):
+            self._train(n_training_steps, target_batch_size)
+
+    def _train(self, n_training_steps: int, target_batch_size: int):
         tr = self._trainer
         key = tr._semantic_key()
         tr.target_batch_size = target_batch_size
@@ -412,9 +421,10 @@ class Testbed:
     def render_frame(self, width: int, height: int):
         """One spp pass accumulated into the internal buffer (testbed.cu:479)."""
         frame = self._frame(width, height, self._spp)
-        if self._accum is None or self._accum.shape[:2] != (height, width) or self._spp == 0:
-            self._accum = torch.zeros((height, width, 4), dtype=torch.float32, device=self.device)
-        self._accum = accumulate(self._accum, frame, self._spp, self.color_space)
+        with profiling.span("spp_composite"):
+            if self._accum is None or self._accum.shape[:2] != (height, width) or self._spp == 0:
+                self._accum = torch.zeros((height, width, 4), dtype=torch.float32, device=self.device)
+            self._accum = accumulate(self._accum, frame, self._spp, self.color_space)
         self._spp += 1
 
     def prewarm_render(self, width: int, height: int, spp: int = 8):
@@ -428,7 +438,14 @@ class Testbed:
         numpy. When the renderer can batch them (can_batch_spp) the spp passes
         are one frame from one cover march, which returns the accumulated
         buffer (the mean `accumulate` computes); otherwise the passes run one
-        by one through `accumulate`, as the reference's loop does."""
+        by one through `accumulate`, as the reference's loop does. A
+        "render" request of utils/profiling.py, counted in render.frames;
+        the frame's readback is its host sync render.sync.readback."""
+        with profiling.request("render"):
+            profiling.count("render.frames")
+            return self._render(width, height, spp, to_srgb)
+
+    def _render(self, width: int, height: int, spp: int, to_srgb: bool) -> np.ndarray:
         self._spp = 0
         cs = self.color_space.lower()
         if spp > 1 and cs in ("linear", "srgb") and self._renderer.can_batch_spp():
@@ -445,4 +462,17 @@ class Testbed:
             "SRGB" if to_srgb else "Linear",
             self.rendering_buffer.tonemap_curve,
         )
-        return out.cpu().numpy()
+        with profiling.host_sync("render", "readback"):
+            return self._to_host(out)
+
+    def _to_host(self, out: torch.Tensor) -> np.ndarray:
+        """The frame as a numpy array of its own. From the card it is copied
+        into a page-locked buffer kept for the frame size and then out of it
+        on the host: a copy straight into fresh pageable memory would hold
+        the card while the host faults those pages in."""
+        if out.device.type != "cuda":
+            return out.cpu().numpy()
+        if self._host_frame is None or self._host_frame.shape != out.shape or self._host_frame.dtype != out.dtype:
+            self._host_frame = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        self._host_frame.copy_(out)
+        return self._host_frame.numpy().copy()

@@ -22,10 +22,9 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.ops import kernels
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.config import OptimizerConfig
 from ngp_tpu_torch.utils.fma import sqrt_rn
-
-N_LAUNCHES = 0  # launches of the adam_ema kernel in this process
 
 
 def lr_factor(step: int, cfg: OptimizerConfig) -> np.float32:
@@ -86,7 +85,6 @@ def adam_ema_cuda(g, m, v, p, e, hyper, *, b1, b2, eps, decay, l2=0.0, lazy=Fals
     """Launch the fused kernel on the current stream; updates m, v, p, e in
     place. The kernel reads the step's (lr, bc1, bc2) through the `hyper`
     pointer, so a launch captured in a CUDA graph takes each replay's row."""
-    global N_LAUNCHES
     for name, t in (("g", g), ("m", m), ("v", v), ("p", p), ("e", e)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != p.shape or t.device != p.device:
             raise ValueError(f"{name} must be contiguous float32 of p's shape on p's device")
@@ -101,7 +99,7 @@ def adam_ema_cuda(g, m, v, p, e, hyper, *, b1, b2, eps, decay, l2=0.0, lazy=Fals
     )
     if err != 0:
         raise RuntimeError(f"adam_ema launch failed: CUDA error {err}")
-    N_LAUNCHES += 1
+    profiling.count("launches.adam_ema")
 
 
 def adam_ema(g, m, v, p, e, hyper, **kw):

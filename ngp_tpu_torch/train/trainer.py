@@ -52,7 +52,6 @@ out-of-memory demotion (MAX-reduced over the ranks, so all demote together).
 import collections
 import functools
 import sys
-import time
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -74,6 +73,7 @@ from ngp_tpu_torch.render.envmap import (
 from ngp_tpu_torch.sampling.lattice import n_lattice_points
 from ngp_tpu_torch.sampling.training import generate_training_batch
 from ngp_tpu_torch.train.optimizer import Optimizer
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.aabb import AABB
 from ngp_tpu_torch.utils.color import linear_to_srgb, srgb_to_linear
 from ngp_tpu_torch.utils.config import NGPConfig
@@ -137,13 +137,19 @@ class StepShape(NamedTuple):
     n_seg_cap: int = 0
 
 
+# a train() call's shape (TrainingLoop._choose_shape): its steps' StepShape and their number
+CallShape = NamedTuple("CallShape", [*StepShape.__annotations__.items(), ("n_steps", int)])
+
+
 class TrainCall:
     """`n_steps` training steps of one shape as one call, the counterpart of
     ngp_tpu's scanned call: on the card one CUDA graph, captured at the first
     call (and again if the dataset or the grid tensors it reads change) and
     replayed after; on the CPU the same steps one by one. A replay counts the
     kernel launches the graph makes (kernels.add_launch_counts); the capture
-    itself launches nothing. With a `shard` the steps are a data-parallel
+    itself launches nothing. The capture records the steps' phase events
+    (profiling.phases in run_step), kept in `timed` with the graph, so every
+    replay times its steps' phases. With a `shard` the steps are a data-parallel
     rank's, their all-reduces inside the graph where the mesh's collectives
     can be captured (NCCL); otherwise (gloo) the steps run eagerly and
     `eager_reason` says why."""
@@ -158,6 +164,7 @@ class TrainCall:
         self.graph = None
         self.launches = {}
         self.reserved_bytes = 0  # device memory the capture added to the shared graph pool
+        self.timed = []  # (name, start, end) timing events the capture recorded
         self._inputs = ()
         self._draws = self._stats = None
 
@@ -172,6 +179,13 @@ class TrainCall:
         if self.eager_reason or (self.graph is not None and all(a is b for a, b in zip(reads, self._inputs))):
             return
         self.graph = None
+        profiling.count("train.captures")
+        with profiling.timed("train.capture") as clock:
+            self._capture(ds, reads)
+        profiling.add("train.capture_s", clock.ms * 1e-3)
+
+    def _capture(self, ds, reads):
+        tr = self.trainer
         dev = tr.device
         self._draws = torch.zeros((self.n_steps, len(DRAW_COLUMNS)), dtype=torch.float64, device=dev)
         self._stats = torch.zeros((self.n_steps, len(STAT_KEYS)), dtype=torch.float64, device=dev)
@@ -185,7 +199,7 @@ class TrainCall:
         # querying the card during the capture
         mode = "global" if self.shard is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, pool=tr.graph_pool(), capture_error_mode=mode):
+            with profiling.capture() as timed, torch.cuda.graph(graph, pool=tr.graph_pool(), capture_error_mode=mode):
                 for j in range(self.n_steps):
                     tr.run_step(self.shape, ds, self._draws[j], self._stats[j], shard=self.shard)
         finally:
@@ -194,7 +208,7 @@ class TrainCall:
         self.launches = {k: after[k] - before[k] for k in after}
         self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
         tr.capture_reserved_bytes += self.reserved_bytes
-        self.graph, self._inputs = graph, reads
+        self.graph, self._inputs, self.timed = graph, reads, timed
 
     def __call__(self, ds, draws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """Run the steps with draws (n_steps, 9) into out (n_steps, 6), both on
@@ -206,6 +220,7 @@ class TrainCall:
             return out
         self._draws.copy_(draws)
         self.graph.replay()
+        profiling.replayed(self.timed)
         out.copy_(self._stats)
         kernels.add_launch_counts(self.launches)
         return out
@@ -361,10 +376,12 @@ class Trainer:
         shift and background may be device tensors (a captured step). A
         data-parallel shard passes the global ray count as n_rays_denom and
         stride_denom and its first global ray as index_offset (n_rays and
-        n_long are its own)."""
+        n_long are its own). Inside run_step its work is the step's phases
+        step.batch, step.forward and step.backward."""
         cfg = self.config
         scfg = cfg.sampler
         n_rays_denom = n_rays_denom or n_rays
+        profiling.phase("step.batch")
         batch = generate_training_batch(
             scfg, self.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), self.grid.occupancy, salts, n_rays,
             n_rays_shift, capacity, s_pad, stride_denom=stride_denom, index_offset=index_offset, occ_aabb=self.grid.occ_aabb,
@@ -388,6 +405,7 @@ class Trainer:
                 rgb_target[batch.sel_long],
                 bg[batch.sel_long] if bg.dim() == 2 else bg,
             ),)
+        profiling.phase("step.forward")
         rgb_raw, sigma_raw = self.model.rgbsigma_raw(batch.pos, batch.dirs)
         loss, aux = train_loss(
             rgb_raw, sigma_raw, batch.layout,
@@ -404,6 +422,7 @@ class Trainer:
             apply_rgb_activation=apply_rgb_activation,
             apply_density_activation=apply_density_activation,
         )
+        profiling.phase("step.backward")
         grads = torch.autograd.grad(loss, self.model.param_list())
         if self.envmap is not None:
             aux["envmap_grad"] = self._envmap_grad(batch, aux, rgb_target, bg, n_rays_denom)
@@ -438,30 +457,37 @@ class Trainer:
         a data-parallel rank's: its rays are its slice of the global batch,
         and the gradients (SUM), the envmap's gradient (SUM) and the stats
         (the first three SUM, the last three MAX) are all-reduced over the
-        mesh before they are used (ngp_tpu/parallel/mesh.py:186-223)."""
+        mesh before they are used (ngp_tpu/parallel/mesh.py:186-223).
+
+        Its work is four device phases that partition it (profiling.phases):
+        step.batch, step.forward, step.backward (the gradients' all-reduce
+        included) and step.optimizer (the update, the envmap's accumulation
+        and the stats)."""
         dp = {} if shard is None else {
             "n_rays_denom": shard.n_rays_global, "stride_denom": shard.n_rays_global, "index_offset": shard.index_offset,
         }
-        with torch.enable_grad():
-            batch, _, aux, grads = self.loss_and_grads(
-                ds, shape.n_rays, shape.capacity, shape.s_pad, draws[2].to(torch.int64), draws[0:2].to(torch.int64),
-                draws[3:6].to(torch.float32), shape.n_window, shape.s_short, shape.n_long, shape.n_seg_cap, **dp,
-            )
-        if shard is not None:
-            grads = [g.contiguous() for g in grads]
-            shard.mesh.all_reduce_(grads, "sum")
+        with profiling.phases():
+            with torch.enable_grad():
+                batch, _, aux, grads = self.loss_and_grads(
+                    ds, shape.n_rays, shape.capacity, shape.s_pad, draws[2].to(torch.int64), draws[0:2].to(torch.int64),
+                    draws[3:6].to(torch.float32), shape.n_window, shape.s_short, shape.n_long, shape.n_seg_cap, **dp,
+                )
+            if shard is not None:
+                grads = [g.contiguous() for g in grads]
+                shard.mesh.all_reduce_(grads, "sum")
+                if self.envmap is not None:
+                    shard.mesh.all_reduce_([aux["envmap_grad"]], "sum")
+            profiling.phase("step.optimizer")
+            self.optimizer.apply(grads, draws[6:9].to(torch.float32))
             if self.envmap is not None:
-                shard.mesh.all_reduce_([aux["envmap_grad"]], "sum")
-        self.optimizer.apply(grads, draws[6:9].to(torch.float32))
-        if self.envmap is not None:
-            envmap_accumulate(self.envmap, aux["envmap_grad"])
-        stats = (aux["loss_sum"], aux["measured_batch_size"], batch.n_samples, batch.max_ray_count, batch.count_at_split,
-                 batch.seg_count_hi)
-        stats = torch.stack([s.to(torch.float64) for s in stats])
-        if shard is not None:
-            shard.mesh.all_reduce_([stats[:3]], "sum")
-            shard.mesh.all_reduce_([stats[3:]], "max")
-        return out.copy_(stats)
+                envmap_accumulate(self.envmap, aux["envmap_grad"])
+            stats = (aux["loss_sum"], aux["measured_batch_size"], batch.n_samples, batch.max_ray_count,
+                     batch.count_at_split, batch.seg_count_hi)
+            stats = torch.stack([s.to(torch.float64) for s in stats])
+            if shard is not None:
+                shard.mesh.all_reduce_([stats[:3]], "sum")
+                shard.mesh.all_reduce_([stats[3:]], "max")
+            return out.copy_(stats)
 
     @torch.no_grad()
     def probe_batch(self, ds, n_probe: int, n_window: int, n_rays_shift: int, salts):
@@ -478,7 +504,9 @@ class Trainer:
             # every rank probes the same rays on the same grid; the MAX makes
             # the ranks' controllers read one value whatever happens
             self.mesh.all_reduce_([probe], "max")
-        return tuple(int(v) for v in probe.cpu())
+        with profiling.span("train.sync.probe"):
+            probe = probe.cpu()
+        return tuple(int(v) for v in probe)
 
     # ----------------------------------------------------------- grid update
     @torch.no_grad()
@@ -563,7 +591,7 @@ class TrainingLoop:
 
     # --------------------------------------------------- shape choice
     def _choose_shape(self, n_training_steps: int, commit: bool):
-        """The full shape tuple of the next call. commit=True applies the
+        """The next call's CallShape. commit=True applies the
         kept-segment-cap controller's transition (grow fast, shrink after two
         half-size votes, 25 % headroom, ladder rungs); commit=False
         (peek_shape) predicts it without changing anything."""
@@ -590,7 +618,8 @@ class TrainingLoop:
             self.n_seg_cap = n_seg_cap_val
             self._seg_shrink_votes = shrink_votes
         n_seg_cap = n_seg_cap_val if 0 < n_seg_cap_val * 8 <= (3 * self.n_window) // 4 else 0
-        return (self.n_rays_per_batch, self.capacity, self.s_pad, self.n_window, s_short, n_long, n_seg_cap, n_training_steps)
+        return CallShape(self.n_rays_per_batch, self.capacity, self.s_pad, self.n_window, s_short, n_long, n_seg_cap,
+                         n_training_steps)
 
     def peek_shape(self, n_training_steps: int = 16):
         """Predict the next call's shape tuple without changing the controllers."""
@@ -652,106 +681,52 @@ class TrainingLoop:
 
     # ------------------------------------------------------------------ train
     def train(self, n_training_steps: int = 16):
-        """One reference train() call: grid prep + n steps + controllers."""
+        """One reference train() call: grid prep + n steps + controllers.
+        Spans (utils/profiling.py): train.prep (training_prep_ms) holds
+        train.grid_update (timed on the device), the occupied box's readback
+        train.sync.grid_box and train.probe; train.steps (training_ms) holds
+        train.capture and the stats' readback train.sync.stats. Counters:
+        train.calls, train.graphed_calls and, for a call that ran its steps
+        eagerly, train.eager.<cause>."""
         tr, ds, gen = self.trainer, self.dataset, self.generator
         scfg = tr.config.sampler
-        t0 = time.perf_counter()
-        tr.grid_update(self.i_step, draw_salts(gen))
-        # size the lattice window from the fresh occupied box (the grid holds
-        # for the call's steps); the readback doubles as the prep sync
-        box = tr.grid.occ_aabb.cpu().numpy()
-        diag = float(np.linalg.norm(box[1] - box[0]))
-        need = int(np.ceil(diag / scfg.min_cone_stepsize)) + 2
-        self.n_window = min(n_lattice_points(scfg), max(128, 128 << int(np.ceil(np.log2(max(need / 128, 1))))))
-        # while the two-level march is off, a periodic probe keeps the
-        # segment estimate fresh so it engages once the grid thins out
-        if self.n_seg_cap == 0 and self.i_step > 0 and (self.i_step // n_training_steps) % 16 == 0:
-            self._probe_next = True
-        if self._per_ray_est is None or self._probe_next:
-            # size n_rays / s_pad from the grid this call marches; the probe
-            # peeks at the generator's next salts without consuming them
-            n_probe = 1 << 10
-            peek = torch.Generator().set_state(gen.get_state())
-            ns, mrc, msc = tr.probe_batch(ds, n_probe, self.n_window, self.n_rays_total, draw_salts(peek))
-            if msc > 0:
-                self._seg_est = float(msc)
-            per_ray = ns / n_probe
-            if per_ray > 0:
-                self.n_rays_per_batch = self._pick_n_rays(per_ray, tr.target_batch_size, self.n_rays_per_batch)
-                self._per_ray_est = per_ray
-                self.s_pad = self._quantize_s_pad(int(mrc * 1.25) + 1, self.n_rays_per_batch)
-                self.s_short = min(self.s_short, self.s_pad) if self.s_short else 0
-            self._probe_next = False
-        self.training_prep_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count("train.calls")
+        with profiling.timed("train.prep") as prep:
+            salts = draw_salts(gen)
+            with profiling.span("train.grid_update", device=True):
+                tr.grid_update(self.i_step, salts)
+            # size the lattice window from the fresh occupied box (the grid holds
+            # for the call's steps); the readback doubles as the prep sync
+            with profiling.span("train.sync.grid_box"):
+                box = tr.grid.occ_aabb.cpu().numpy()
+            diag = float(np.linalg.norm(box[1] - box[0]))
+            need = int(np.ceil(diag / scfg.min_cone_stepsize)) + 2
+            self.n_window = min(n_lattice_points(scfg), max(128, 128 << int(np.ceil(np.log2(max(need / 128, 1))))))
+            # while the two-level march is off, a periodic probe keeps the
+            # segment estimate fresh so it engages once the grid thins out
+            if self.n_seg_cap == 0 and self.i_step > 0 and (self.i_step // n_training_steps) % 16 == 0:
+                self._probe_next = True
+            if self._per_ray_est is None or self._probe_next:
+                # size n_rays / s_pad from the grid this call marches; the probe
+                # peeks at the generator's next salts without consuming them
+                n_probe = 1 << 10
+                peek = torch.Generator().set_state(gen.get_state())
+                with profiling.span("train.probe"):
+                    ns, mrc, msc = tr.probe_batch(ds, n_probe, self.n_window, self.n_rays_total, draw_salts(peek))
+                if msc > 0:
+                    self._seg_est = float(msc)
+                per_ray = ns / n_probe
+                if per_ray > 0:
+                    self.n_rays_per_batch = self._pick_n_rays(per_ray, tr.target_batch_size, self.n_rays_per_batch)
+                    self._per_ray_est = per_ray
+                    self.s_pad = self._quantize_s_pad(int(mrc * 1.25) + 1, self.n_rays_per_batch)
+                    self.s_short = min(self.s_short, self.s_pad) if self.s_short else 0
+                self._probe_next = False
+        self.training_prep_ms = prep.ms
 
-        t0 = time.perf_counter()
-        if self.i_step == 0:
-            self.n_rays_total = 0
-        shape = self._choose_shape(n_training_steps, commit=True)
-        n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap, _ = shape
-        # under the stochastic backward ngp_tpu scans `stochastic_fuse_steps`
-        # steps a dispatch; graphs only for a shape equal to the last call's,
-        # so a transient controller shape does not pay a capture
-        fuse = n_training_steps
-        if tr.model.grid_spec.stochastic_bwd:
-            fuse = min(n_training_steps, max(int(self.stochastic_fuse_steps), 0))
-        use_fused = shape == self._last_shape and fuse > 1 and n_training_steps % max(fuse, 1) == 0
-        self._last_shape = shape
-
-        # the call's draws and optimizer rows: one table, one copy to the card
-        table = torch.from_numpy(tr.draw_table(gen, n_training_steps, self.n_rays_total, n_rays))
-        if tr.device.type == "cuda":
-            table = table.pin_memory()
-        draws = table.to(tr.device, non_blocking=True)
-        out = torch.empty((n_training_steps, len(STAT_KEYS)), dtype=torch.float64, device=tr.device)
-        done = 0
-        self.graphed = False
-        self.eager_reason = "" if use_fused else "a shape unlike the last call's, or one step a call"
-        if use_fused:
-            call = tr.train_call(n_rays, capacity, s_pad, fuse, n_window, s_short, n_long, n_seg_cap)
-            oom = False
-            try:
-                call.prepare(ds)  # the capture, where device memory can run out
-            except torch.cuda.OutOfMemoryError:
-                oom = True
-            if tr._data_parallel():
-                # before any step runs a collective: all ranks demote together
-                flag = torch.tensor([float(oom)], device=tr.device)
-                tr.mesh.all_reduce_([flag], "max")
-                oom = bool(flag.item())
-            if not oom:
-                for k in range(0, n_training_steps, fuse):
-                    call(ds, draws[k : k + fuse], out[k : k + fuse])
-                    done += fuse
-                self.graphed = call.graph is not None
-                self.eager_reason = call.eager_reason
-            else:
-                # a capture ran out of device memory: per-step calls for the rest of the run
-                tr.drop_graphs()
-                if tr.device.type == "cuda":
-                    torch.cuda.empty_cache()
-                self.stochastic_fuse_steps = 1
-                self.demotions += 1
-                self.eager_reason = "a capture ran out of device memory"
-                print(
-                    f"TrainingLoop: capturing {fuse} steps of shape {shape[:7]} ran out of device memory; "
-                    "training one step a call from now on", file=sys.stderr,
-                )
-        if done < n_training_steps:
-            step = tr.train_step(n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap)
-            for k in range(done, n_training_steps):
-                step(ds, draws[k], out[k])
-        if tr.envmap is not None:
-            # the envmap steps once a call on the mean of its steps' gradients
-            # (testbed.cu:295-298), after the call's steps, outside any graph
-            tr.envmap.n_accum += n_training_steps
-            envmap_apply(tr.envmap)
-        # one device -> host copy of the call's telemetry (testbed.cu:266-289)
-        stats = dict(zip(STAT_KEYS, out.cpu().numpy().T, strict=True))
-        tr.optimizer.advance(n_training_steps)
-        self.i_step += n_training_steps
-        self.n_rays_total += n_training_steps * n_rays
-        self.training_ms = (time.perf_counter() - t0) * 1e3
+        with profiling.timed("train.steps") as steps:
+            stats = self._steps(n_training_steps)
+        self.training_ms = steps.ms
 
         measured = float(np.mean(stats["measured_batch_size"]))
         measured_bc = float(np.mean(stats["measured_batch_size_before_compaction"]))
@@ -793,3 +768,93 @@ class TrainingLoop:
         else:
             self._s_short_shrink_votes = 0
         return stats
+
+    def _steps(self, n_training_steps: int) -> dict:
+        """The call's steps, graphed where its shape equals the last call's;
+        returns its stats, read back in one copy."""
+        tr, ds, gen = self.trainer, self.dataset, self.generator
+        if self.i_step == 0:
+            self.n_rays_total = 0
+        shape = self._choose_shape(n_training_steps, commit=True)
+        n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap, _ = shape
+        # under the stochastic backward ngp_tpu scans `stochastic_fuse_steps`
+        # steps a dispatch; graphs only for a shape equal to the last call's,
+        # so a transient controller shape does not pay a capture
+        fuse = n_training_steps
+        if tr.model.grid_spec.stochastic_bwd:
+            fuse = min(n_training_steps, max(int(self.stochastic_fuse_steps), 0))
+        use_fused = shape == self._last_shape and fuse > 1 and n_training_steps % max(fuse, 1) == 0
+        cause = None if use_fused else self._eager_cause(shape)
+        self._last_shape = shape
+
+        # the call's draws and optimizer rows: one table, one copy to the card
+        table = torch.from_numpy(tr.draw_table(gen, n_training_steps, self.n_rays_total, n_rays))
+        if tr.device.type == "cuda":
+            table = table.pin_memory()
+        draws = table.to(tr.device, non_blocking=True)
+        out = torch.empty((n_training_steps, len(STAT_KEYS)), dtype=torch.float64, device=tr.device)
+        done = 0
+        self.graphed = False
+        self.eager_reason = "" if use_fused else "a shape unlike the last call's, or one step a call"
+        if use_fused:
+            call = tr.train_call(n_rays, capacity, s_pad, fuse, n_window, s_short, n_long, n_seg_cap)
+            oom = False
+            try:
+                call.prepare(ds)  # the capture, where device memory can run out
+            except torch.cuda.OutOfMemoryError:
+                oom = True
+            if tr._data_parallel():
+                # before any step runs a collective: all ranks demote together
+                flag = torch.tensor([float(oom)], device=tr.device)
+                tr.mesh.all_reduce_([flag], "max")
+                with profiling.span("train.sync.oom_flag"):
+                    oom = bool(flag.item())
+            if not oom:
+                for k in range(0, n_training_steps, fuse):
+                    call(ds, draws[k : k + fuse], out[k : k + fuse])
+                    done += fuse
+                self.graphed = call.graph is not None
+                self.eager_reason = call.eager_reason
+                cause = None if self.graphed else "no_graph"
+            else:
+                # a capture ran out of device memory: per-step calls for the rest of the run
+                tr.drop_graphs()
+                if tr.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                self.stochastic_fuse_steps = 1
+                self.demotions += 1
+                self.eager_reason = "a capture ran out of device memory"
+                cause = "oom_demoted"
+                print(
+                    f"TrainingLoop: capturing {fuse} steps of shape {shape[:7]} ran out of device memory; "
+                    "training one step a call from now on", file=sys.stderr,
+                )
+        if done < n_training_steps:
+            step = tr.train_step(n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap)
+            for k in range(done, n_training_steps):
+                step(ds, draws[k], out[k])
+        if tr.envmap is not None:
+            # the envmap steps once a call on the mean of its steps' gradients
+            # (testbed.cu:295-298), after the call's steps, outside any graph
+            tr.envmap.n_accum += n_training_steps
+            envmap_apply(tr.envmap)
+        # one device -> host copy of the call's telemetry (testbed.cu:266-289)
+        with profiling.span("train.sync.stats"):
+            host = out.cpu()
+        stats = dict(zip(STAT_KEYS, host.numpy().T, strict=True))
+        tr.optimizer.advance(n_training_steps)
+        self.i_step += n_training_steps
+        self.n_rays_total += n_training_steps * n_rays
+        profiling.count("train.graphed_calls" if cause is None else f"train.eager.{cause}")
+        return stats
+
+    def _eager_cause(self, shape: tuple) -> str:
+        """Why a call of this shape (CallShape's fields) runs its steps
+        eagerly: the first call of the loop, the first field that differs
+        from the last call's shape, or one step a call (stochastic_fuse_steps
+        1 or a step count it does not divide)."""
+        if self._last_shape is None:
+            return "first_call"
+        if shape != self._last_shape:
+            return "shape." + next(f for f, a, b in zip(CallShape._fields, shape, self._last_shape, strict=True) if a != b)
+        return "one_step"

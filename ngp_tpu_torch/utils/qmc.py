@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from ngp_tpu_torch.utils import profiling
+
 _MASK = 0xFFFFFFFF
 
 _DIRECTIONS_DIM1 = [0x80000000 >> i for i in range(32)]
@@ -107,8 +109,12 @@ def _index_seed(index, seed):
 
 
 def ld_random_val(index, seed, dim: int = 0) -> torch.Tensor:
-    """Low-discrepancy value in [0, 1] per (index, seed), broadcast."""
-    index, seed = _index_seed(index, seed)
+    """Low-discrepancy value in [0, 1] per (index, seed), broadcast. A
+    Python index (or seed) beside a tensor is copied to the tensor's device:
+    a frame's host sync render.sync.jitter."""
+    copies = isinstance(index, torch.Tensor) != isinstance(seed, torch.Tensor)
+    with profiling.host_sync("render", "jitter", int(copies)):
+        index, seed = _index_seed(index, seed)
     index = nested_uniform_scramble(index, seed)
     return _to_unit(nested_uniform_scramble(sobol(index, dim), _hash_combine(seed, dim)))
 

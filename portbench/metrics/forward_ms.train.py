@@ -1,0 +1,9 @@
+"""forward_ms.train: device ms a training step of the forward: the network on the batch and the loss
+(the port's step.forward phase, timed by the CUDA events captured in the call's graph), the mean over the
+steps that the traced graphed calls timed (spans.graphed_step_ms)."""
+
+from portbench.harness.spans import graphed_step_ms
+
+
+def read(run):
+    return graphed_step_ms("step.forward") if run.traced_calls else None

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from ngp_tpu_torch.ops.kernels import launch_counts
+
 torch.set_num_threads(2)
 
 # bf16 operands: another fp32 summation order can move a hidden activation to
@@ -68,10 +70,10 @@ def test_fused_mlp_kernel_matches_plain(card, n, d_hidden, r_hidden, width, d_in
     )
     enc = torch.randn((n, d_in), generator=gen).to(card)
     sh = torch.randn((n, d_sh), generator=gen).to(card)
-    before = fm.N_LAUNCHES
+    before = launch_counts()["fused_mlp_fwd"]
     k_rgb, k_dens = fm.fused_mlp_fwd(enc, sh, fw)
     torch.cuda.synchronize()
-    assert fm.N_LAUNCHES == before + 1
+    assert launch_counts()["fused_mlp_fwd"] == before + 1
     p_rgb, p_dens = fm.fused_mlp_fwd_plain(enc, sh, fw)
     torch.testing.assert_close(k_rgb, p_rgb, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(k_dens, p_dens, rtol=RTOL, atol=ATOL)
@@ -143,11 +145,9 @@ def test_card_spp8_frame_matches_cpu_frame(card, mode):
     """The protocol's spp-8 frame (Shade: one shared evaluation per cover
     point; Depth: every pass evaluated) on the card and on the CPU, within
     the spp-1 frame's limits."""
-    from ngp_tpu_torch.ops import fused_mlp as fm
-
-    before = fm.N_LAUNCHES
+    before = launch_counts()["fused_mlp_fwd"]
     frames = _card_and_cpu_frames(card, 8, mode)
-    assert fm.N_LAUNCHES > before
+    assert launch_counts()["fused_mlp_fwd"] > before
     err = (frames[0] - frames[1]).abs()
     assert frames[1][..., 3].max() > 0.05
     assert err.max() <= 2e-2 and err.mean() <= 1e-3
@@ -225,10 +225,10 @@ def test_fused_mlp_bwd_kernel_matches_plain(card, n, d_hidden, r_hidden, width):
     enc, sh = torch.randn((n, 32), generator=gen).to(card), torch.randn((n, 16), generator=gen).to(card)
     g_rgb, g_dens = torch.randn((n, 3), generator=gen).to(card), torch.zeros((n, 16)).to(card)
     g_dens[:, 0] = torch.randn((n,), generator=gen).to(card)
-    before = fm.N_LAUNCHES_BWD
+    before = launch_counts()["fused_mlp_bwd"]
     k_enc, k_w = fm.fused_mlp_bwd(enc, sh, g_rgb, g_dens, fw)
     torch.cuda.synchronize()
-    assert fm.N_LAUNCHES_BWD == before + 1
+    assert launch_counts()["fused_mlp_bwd"] == before + 1
     p_enc, p_w = fm.fused_mlp_bwd_plain(enc, sh, g_rgb, g_dens, fw)
     torch.testing.assert_close(k_enc, p_enc, rtol=BWD_RTOL, atol=BWD_ATOL * p_enc.abs().max().item())
     torch.testing.assert_close(k_w, p_w, rtol=BWD_RTOL, atol=BWD_ATOL * p_w.abs().max().item())
@@ -268,10 +268,10 @@ def test_adam_ema_kernel_matches_plain(card, n, lazy, l2):
     plain = [s.clone() for s in state]
     opt.adam_ema_plain(g, *plain, row, **kw)
     dev = [s.to(card) for s in state]
-    before = opt.N_LAUNCHES
+    before = launch_counts()["adam_ema"]
     opt.adam_ema(g.to(card), *dev, row.to(card), **kw)
     torch.cuda.synchronize()
-    assert opt.N_LAUNCHES == before + 1
+    assert launch_counts()["adam_ema"] == before + 1
     for got, want in zip(dev, plain, strict=True):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-12)
     # the plain version on the card, from the same device row: bit for bit
@@ -300,9 +300,9 @@ def test_adam_ema_on_the_envmap_leaf_matches_plain_bit_for_bit(card):
     row = torch.tensor(ADAM_ROW, dtype=torch.float32, device=card)
     dev = [s.to(card) for s in state]
     plain = [s.to(card) for s in state]
-    before = opt.N_LAUNCHES
+    before = launch_counts()["adam_ema"]
     opt.adam_ema(g.to(card), *dev, row, **kw)
-    assert opt.N_LAUNCHES == before + 1
+    assert launch_counts()["adam_ema"] == before + 1
     opt.adam_ema_plain(g.to(card), *plain, row, **kw)
     for got, want in zip(dev, plain, strict=True):
         assert torch.equal(got, want)
@@ -316,7 +316,6 @@ def test_envmap_steps_through_adam_ema_once_a_call(card, tmp_path):
     for the envmap, which moves."""
     from ngp_tpu_torch import Testbed
     from ngp_tpu_torch.data.synthetic import write_synthetic_dataset
-    from ngp_tpu_torch.train import optimizer as opt
 
     train_json, _ = write_synthetic_dataset(tmp_path, n_train=4, n_test=1, width=32, height=32, device=card)
     tb = Testbed(device=card)
@@ -326,10 +325,10 @@ def test_envmap_steps_through_adam_ema_once_a_call(card, tmp_path):
     n_leaves = len(tb._trainer.model.param_list())
     graphed = []
     for _ in range(4):
-        before = opt.N_LAUNCHES
+        before = launch_counts()["adam_ema"]
         tb.train(16, 1 << 14)
         torch.cuda.synchronize()
-        assert opt.N_LAUNCHES - before == 16 * n_leaves + 1
+        assert launch_counts()["adam_ema"] - before == 16 * n_leaves + 1
         graphed.append(tb.training_buffer.graphed)
     env = tb._trainer.envmap
     assert any(graphed) and env.optimizer.count == 4 and env.params.abs().max() > 0
@@ -340,10 +339,10 @@ def test_adam_ema_rejects_unaligned_buffers(card):
     from ngp_tpu_torch.train import optimizer as opt
 
     bufs = [torch.zeros((1001,), device=card) for _ in range(5)]
-    before = opt.N_LAUNCHES
+    before = launch_counts()["adam_ema"]
     with pytest.raises(ValueError, match="16-byte"):
         opt.adam_ema(*(b[1:] for b in bufs), torch.tensor(ADAM_ROW, device=card), **ADAM_KW, lazy=True)
-    assert opt.N_LAUNCHES == before
+    assert launch_counts()["adam_ema"] == before
 
 
 # the TINY encoding of tests/test_end_to_end.py: dense and hash levels
@@ -374,10 +373,10 @@ def test_hash_encode_kernel_matches_plain(card, n, n_features):
     from ngp_tpu_torch.ops import hash_encoding as he
 
     spec, table, pos, _, _ = _hash_case(n, n_features, 2, n, card)
-    before = he.N_LAUNCHES_HASH_FWD
+    before = launch_counts()["hash_encode_fwd"]
     out = he.hash_encode(table, pos, spec)
     torch.cuda.synchronize()
-    assert he.N_LAUNCHES_HASH_FWD == before + 1
+    assert launch_counts()["hash_encode_fwd"] == before + 1
     # only the order of the fp32 8-term sum differs; |out| <= 1
     torch.testing.assert_close(out, he.hash_encode_plain(table, pos, spec), rtol=0, atol=1e-5)
 
@@ -389,11 +388,11 @@ def test_hash_deposits_match_plain(card, n, n_features, rate):
     from ngp_tpu_torch.ops import hash_encoding as he
 
     spec, _, pos, g_dyadic, g = _hash_case(n, n_features, rate, n + 1, card)
-    before = (he.N_LAUNCHES_HASH_BWD_STOCHASTIC, he.N_LAUNCHES_HASH_BWD_EXACT)
+    before = (launch_counts()["hash_encode_bwd_stochastic"], launch_counts()["hash_encode_bwd_exact"])
     stochastic = he.hash_bwd_oadd_stochastic(pos, spec, g_dyadic)
     exact = he.hash_bwd_exact(pos, spec, g)
     torch.cuda.synchronize()
-    assert (he.N_LAUNCHES_HASH_BWD_STOCHASTIC, he.N_LAUNCHES_HASH_BWD_EXACT) == (before[0] + 1, before[1] + 1)
+    assert (launch_counts()["hash_encode_bwd_stochastic"], launch_counts()["hash_encode_bwd_exact"]) == (before[0] + 1, before[1] + 1)
     # the same draws and rows, exact sums: bit for bit
     assert torch.equal(stochastic, he.hash_bwd_oadd_stochastic_plain(pos, spec, g_dyadic))
     # w * g summed in another order (atomics)
@@ -489,17 +488,17 @@ def test_hash_kernels_match_plain_by_level_group(card, n, n_features, n_levels, 
         rng.uniform(-1.0, 1.0, (n_levels, spec.padded_size, n_features)).astype(np.float32)
     ).to(card)
     g = torch.from_numpy(rng.integers(-8, 9, (n, spec.n_output_dims)).astype(np.float32) * np.float32(2.0**-8)).to(card)
-    before = he.N_LAUNCHES_HASH_FWD
+    before = launch_counts()["hash_encode_fwd"]
     out = he.hash_encode(table, pos, spec)
     torch.cuda.synchronize()
-    assert he.N_LAUNCHES_HASH_FWD == before + 1
+    assert launch_counts()["hash_encode_fwd"] == before + 1
     torch.testing.assert_close(out, he.hash_encode_plain(table, pos, spec), rtol=0, atol=1e-5)
     for rate in (1, 2):
         sp = _kernel_spec(n_levels, n_features, rate)
-        before = he.N_LAUNCHES_HASH_BWD_STOCHASTIC
+        before = launch_counts()["hash_encode_bwd_stochastic"]
         got = he.hash_bwd_oadd_stochastic(pos, sp, g)
         torch.cuda.synchronize()
-        assert he.N_LAUNCHES_HASH_BWD_STOCHASTIC == before + 1
+        assert launch_counts()["hash_encode_bwd_stochastic"] == before + 1
         assert torch.equal(got, he.hash_bwd_oadd_stochastic_plain(pos, sp, g))
 
 
@@ -638,17 +637,17 @@ def test_hash_variant_kernels_match_plain(card, variant, n, n_features, n_levels
     pos = torch.from_numpy(_kernel_positions(kind, n, spec, rng)).to(card)
     table = torch.from_numpy(rng.uniform(-1.0, 1.0, (n_levels, spec.padded_size, n_features)).astype(np.float32)).to(card)
     g = torch.from_numpy(rng.normal(size=(n, spec.n_output_dims)).astype(np.float32)).to(card)
-    before = (he.N_LAUNCHES_HASH_FWD, he.N_LAUNCHES_HASH_BWD_EXACT, he.N_LAUNCHES_HASH_BWD_STOCHASTIC)
+    before = (launch_counts()["hash_encode_fwd"], launch_counts()["hash_encode_bwd_exact"], launch_counts()["hash_encode_bwd_stochastic"])
     out = he.hash_encode(table, pos, spec)
     d = he.hash_bwd_exact(pos, spec, g)
     torch.cuda.synchronize()
-    assert (he.N_LAUNCHES_HASH_FWD, he.N_LAUNCHES_HASH_BWD_EXACT) == (before[0] + 1, before[1] + 1)
+    assert (launch_counts()["hash_encode_fwd"], launch_counts()["hash_encode_bwd_exact"]) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(out, he.hash_encode_plain(table, pos, spec), rtol=0, atol=1e-5)
     want = he.hash_bwd_exact_plain(pos, spec, g)
     torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
     with pytest.raises(ValueError, match="oadd"):
         he.hash_bwd_oadd_stochastic_cuda(pos, spec, g)
-    assert he.N_LAUNCHES_HASH_BWD_STOCHASTIC == before[2]
+    assert launch_counts()["hash_encode_bwd_stochastic"] == before[2]
 
 
 # the exact scatter of every variant over HASH_GROUP_CASES, plus warps whose 32
@@ -680,10 +679,10 @@ def test_exact_scatter_matches_plain(card, variant, n, n_features, n_levels, kin
         assert (rows[..., 0::2] == rows[..., 1::2]).any()  # the clamp puts a pair on one row
     pos = pos.to(card)
     g = torch.from_numpy(rng.normal(size=(n, spec.n_output_dims)).astype(np.float32)).to(card)
-    before = he.N_LAUNCHES_HASH_BWD_EXACT
+    before = launch_counts()["hash_encode_bwd_exact"]
     d = he.hash_bwd_exact(pos, spec, g)
     torch.cuda.synchronize()
-    assert he.N_LAUNCHES_HASH_BWD_EXACT == before + 1
+    assert launch_counts()["hash_encode_bwd_exact"] == before + 1
     want = he.hash_bwd_exact_plain(pos, spec, g)
     torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
@@ -699,10 +698,10 @@ def test_exact_scatter_refuses_an_odd_row_count(card):
                            offsets=(0,), variant="tcnn")
     pos = torch.rand((64, 3), device=card)
     g = torch.randn((64, 2), device=card)
-    before = he.N_LAUNCHES_HASH_BWD_EXACT
+    before = launch_counts()["hash_encode_bwd_exact"]
     with pytest.raises(RuntimeError, match="exact"):
         he.hash_bwd_exact(pos, spec, g)
-    assert he.N_LAUNCHES_HASH_BWD_EXACT == before
+    assert launch_counts()["hash_encode_bwd_exact"] == before
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ngp_tpu_torch.ops import hash_encoding as he
+from ngp_tpu_torch.ops.kernels import launch_counts
 from ngp_tpu_torch.utils.config import HashEncodingConfig, NGPConfig, load_commented_json
 
 torch.set_num_threads(2)
@@ -57,13 +58,13 @@ def test_other_devices_raise(op):
     version, and launches nothing."""
     spec = he.HashGridSpec.create(HashEncodingConfig(**TINY))
     table, pos, g = _args(spec, 16, "meta")
-    before = (he.N_LAUNCHES_HASH_FWD, he.N_LAUNCHES_HASH_BWD_EXACT, he.N_LAUNCHES_HASH_BWD_STOCHASTIC)
+    before = (launch_counts()["hash_encode_fwd"], launch_counts()["hash_encode_bwd_exact"], launch_counts()["hash_encode_bwd_stochastic"])
     with pytest.raises(ValueError, match="cuda or cpu"):
         if op == "hash_encode":
             he.hash_encode(table, pos, spec)
         else:
             getattr(he, op)(pos, spec, g)
-    assert (he.N_LAUNCHES_HASH_FWD, he.N_LAUNCHES_HASH_BWD_EXACT, he.N_LAUNCHES_HASH_BWD_STOCHASTIC) == before
+    assert (launch_counts()["hash_encode_fwd"], launch_counts()["hash_encode_bwd_exact"], launch_counts()["hash_encode_bwd_stochastic"]) == before
 
 
 def test_cpu_tensors_take_the_plain_versions():
