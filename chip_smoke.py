@@ -56,7 +56,13 @@ Phases, in order; any failure exits non-zero:
      and timed on path-shaped positions: one network batch of an 800x800
      Shade frame and one train(1, 2**18) step's batch, both captured by
      wrapping the kernels' wrappers, with each set's distinct (level, row)
-     pairs and bounds beside the uniform case's;
+     pairs and bounds beside the uniform case's; then the training batch
+     kernels at the training cells' shape (TRAIN_BATCH_SHAPE) on the trained
+     grid and scene, two-level march on and off: the kernels' batch against
+     the plain path's, every field bit for bit, and train_march and
+     train_emit each timed alone (their inputs captured by wrapping their
+     wrappers), with their bounds, beside the whole batch through the
+     kernels and through the plain path;
   5. the protocol CLI (python -m ngp_tpu_torch.experiment.run, called
      in-process) on the card on that scene, with every counter zeroed just
      before and read just after: base.json, --n_steps CLI_STEPS with a
@@ -234,9 +240,14 @@ VARIANT_CASES = [("2^18", 1 << 18), ("2^18+37", (1 << 18) + 37)]
 TCNN_TRAIN_CALLS = 16
 XADD_TRAIN_CALLS = 2
 # a variant's training path: the exact scatter, never the stochastic one
-VARIANT_TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_exact")
+VARIANT_TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_exact",
+                         "train_march", "train_emit")
 REF_DIR = "build/chip_smoke_reference"
-TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_stochastic")
+TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_stochastic",
+                 "train_march", "train_emit")
+# the training cells' step shape (portbench's train-800 traffic): n_rays,
+# capacity, s_pad, n_window, s_short, n_long, n_seg_cap
+TRAIN_BATCH_SHAPE = (10240, 1 << 18, 512, 1152, 32, 2560, 96)
 # the envmap phase: base.json with envmap.train (its default 256x256 envmap)
 # trained ENVMAP_CALLS train(16, 2**18) calls on the training scene
 ENVMAP_CALLS = 16
@@ -268,6 +279,8 @@ PROFILE_KERNELS = {
     "adam_ema": (("adam_ema_kernel",), ("adam_ema_kernel",)),
     "hash_encode_fwd": (("hash_encode_fwd_kernel",), ("hash_encode_fwd_kernel",)),
     "hash_encode_bwd": (("hash_bwd_stochastic_kernel", "hash_bwd_exact_kernel"),) * 2,
+    "train_march": (("train_march_kernel",), ("train_march_kernel",)),
+    "train_emit": (("train_emit_kernel",), ("train_emit_kernel",)),
 }
 # (memory bytes/s, bf16 dense tensor FLOP/s, fp32 FLOP/s outside the tensor
 # cores) by card, from NVIDIA's data sheets
@@ -1053,6 +1066,114 @@ def phase_path_hash(he, bw, fp32_flops, batches: dict, uniform: dict):
             print(f"{name} on {label} positions: {r['distinct_rows']} distinct (level, row) pairs, {r['bytes'] / 1e6:.2f} MB, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), {r['ms']:.4f} ms alone")
     return worst, out
+
+
+def batches_equal(a, b) -> bool:
+    """Every tensor field of two TrainingBatches (and of their layouts) equal."""
+    def same(x, y):
+        return (x is None and y is None) or (x is not None and y is not None and x.shape == y.shape and torch.equal(x, y))
+
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if name in ("layout", "layout_long"):
+            if (x is None) != (y is None) or (x is not None and not all(same(u, v) for u, v in zip(x, y))):
+                return False
+        elif not same(x, y):
+            return False
+    return True
+
+
+def graphed_ms(fn, reps: int = 50) -> float:
+    """Device ms of fn() captured in a CUDA graph and replayed (warmed on a
+    side stream first, as torch.cuda.graph asks)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+@timed
+def phase_train_batch(tb, bw, fp32_flops) -> dict:
+    """The training batch kernels at TRAIN_BATCH_SHAPE on the trained grid and
+    scene, with the two-level march on (n_seg_cap 96) and off: the kernels'
+    batch against the plain path's on the same tensors (every field equal),
+    train_march and train_emit each timed alone on the inputs of that call
+    (captured by wrapping their wrappers; the kernel's device time and its
+    wrapper's eager time), and the whole batch timed through the kernels and
+    through the plain path, each replayed from a CUDA graph as a training
+    step runs it. Bounds in bytes: the march reads a ray's 37 B and writes its
+    counts and its lat_pad row, and reads the cascade-0 occupancy (and the
+    pooled grid) once; the emission reads 17 B a slot, a ray's 36 B and the
+    valid slots' ordinals and writes 24 B a slot."""
+    from ngp_tpu_torch.sampling import training
+
+    tr, ds = tb._trainer, tb._loop.dataset
+    scfg = tr.config.sampler
+    n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap = TRAIN_BATCH_SHAPE
+    salts = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device="cuda")
+    shift = torch.tensor(987654321, dtype=torch.int64, device="cuda")
+    args = (scfg, tr.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), tr.grid.occupancy, salts, n_rays, shift,
+            capacity, s_pad)
+    out = {"shape": list(TRAIN_BATCH_SHAPE)}
+    real = {"march": training.train_march, "emit": training.train_emit}
+    for label, cap in (("two_level", n_seg_cap), ("single_level", 0)):
+        kw = dict(occ_aabb=tr.grid.occ_aabb, n_window=n_window, s_short=s_short, n_long=n_long, n_seg_cap=cap)
+        seen = {}
+
+        def spy(name):
+            def run(*a):
+                seen[name] = a
+                return real[name](*a)
+            return run
+
+        training.train_march, training.train_emit = spy("march"), spy("emit")
+        try:
+            got = training.generate_training_batch(*args, **kw)
+        finally:
+            training.train_march, training.train_emit = real["march"], real["emit"]
+
+        def plain():
+            return training._batch(*args, 0, 0, kw["occ_aabb"], n_window, s_short, n_long, cap, False, False)
+
+        equal = batches_equal(got, plain())
+        counts, lat_pad, seg_counts = real["march"](*seen["march"])
+        coarse = seg_counts is not None
+        g = scfg.grid_size
+        march_bytes = (n_rays * (37 + 8 + 8 * coarse + 2 * lat_pad.shape[1]) + g**3
+                       + (tr.grid.occupancy.numel() // 512 if coarse else 0))
+        n_valid = int(got.layout.flat_valid.sum()) + (int(got.layout_long.flat_valid.sum()) if got.layout_long is not None else 0)
+        emit_bytes = capacity * (17 + 24) + n_rays * 36 + 2 * n_valid
+        # a kernel's own device time (the profiler's, the median of 20
+        # launches) beside its wrapper's eager time, host launch included
+        timings = {}
+        for name in ("march", "emit"):
+            launches = kernel_launch_ms(lambda: [real[name](*seen[name]) for _ in range(20)], f"train_{name}_kernel")
+            timings[name] = {"ms": float(np.median(launches)), "wrapper_ms": cuda_ms(lambda: real[name](*seen[name]))}
+        march = {**timings["march"], **bound(march_bytes, 0, bw, fp32_flops)}
+        emit = {**timings["emit"], **bound(emit_bytes, 0, bw, fp32_flops)}
+        batch_ms = graphed_ms(lambda: training.generate_training_batch(*args, **kw))
+        plain_ms = graphed_ms(plain)
+        # the plain path's time for the work the kernels replace: the plain
+        # batch less what the kernels' batch spends around them
+        replaced_plain_ms = plain_ms - (batch_ms - march["ms"] - emit["ms"])
+        out[label] = {"equal": equal, "train_march": march, "train_emit": emit, "batch_ms": batch_ms,
+                      "plain_batch_ms": plain_ms, "replaced_plain_ms": replaced_plain_ms,
+                      "n_samples": int(got.n_samples), "max_ray_count": int(got.max_ray_count),
+                      "seg_count_hi": int(got.seg_count_hi), "valid_slots": n_valid}
+        print(f"train batch {label} at {TRAIN_BATCH_SHAPE[:6] + (cap,)}: kernels == plain: {equal}; train_march "
+              f"{march['ms']:.4f} ms (wrapper {march['wrapper_ms']:.4f}; bound {march['bound_ms']:.4f}, "
+              f"{march_bytes / 1e6:.1f} MB), train_emit {emit['ms']:.4f} ms (wrapper {emit['wrapper_ms']:.4f}; bound "
+              f"{emit['bound_ms']:.4f}, {emit_bytes / 1e6:.1f} MB); whole batch "
+              f"{batch_ms:.3f} ms through the kernels, {plain_ms:.3f} ms plain (graphed); samples {int(got.n_samples)}, "
+              f"longest ray {int(got.max_ray_count)}, seg p99.5 {int(got.seg_count_hi)} ({card_line()})")
+        if not equal:
+            raise SystemExit(f"the training batch kernels disagree with the plain path ({label})")
+    return out
 
 
 def psnr_view(tb, test_json, i, width, height):
@@ -2490,6 +2611,7 @@ def main():
     train_tb, train = phase_train(Testbed)
     # the positions of one train(1, 2**18) step's batch (the deposit's N)
     train_batches = capture_positions(he, "hash_bwd_oadd_stochastic_cuda", TRAIN_BATCH, lambda: train_tb.train(1, TRAIN_BATCH))
+    train_batch = train["batch_kernels"] = phase_train_batch(train_tb, bw, fp32_flops)
     del train_tb
     train["reference"] = phase_train_reference(Testbed, NGPModel)
     train["card"] = card
@@ -2580,7 +2702,17 @@ def main():
     hfwd["launches_by_path"] = by_path("hash_encode_fwd")
     hbwd["launches_by_path"] = {**by_path(*bwd_names), "train_stochastic": tl[bwd_names[0]], "train_exact": tl[bwd_names[1]],
                                 "protocol_cli_stochastic": pl[bwd_names[0]], "protocol_cli_exact": pl[bwd_names[1]]}
-    kernels = [fwd, bwd, adam, hfwd, hbwd]
+    batch_kernels = []
+    for kernel in ("train_march", "train_emit"):
+        timing = {**train_batch["two_level"][kernel], "plain_ms": train_batch["two_level"]["replaced_plain_ms"],
+                  "library_ms": None}
+        e = kernel_entry(kernel, "ngp_tpu_torch/csrc/train_batch.cu",
+                         "none: XLA code of ngp_tpu/sampling/training.py:83-329 and ngp_tpu/sampling/lattice.py",
+                         pl[kernel], 0.0 if train_batch["two_level"]["equal"] else float("inf"), timing)
+        e["single_level"] = train_batch["single_level"][kernel]
+        e["launches_by_path"] = by_path(kernel)
+        batch_kernels.append(e)
+    kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels]
     for k in kernels:
         k["ms_in_frame"] = profile["in_path"][k["name"]]["ms_per_launch"]
         k["ms_in_step"] = train["profile"]["in_path"][k["name"]]["ms_per_launch"]

@@ -14,7 +14,12 @@ n_long longest rays composite in a (n_long, s_pad) bucket and the rest in
 (R, s_short); rays longer than their bucket or overflowing the flat sample
 budget are dropped whole, and the survivors fill the flat network batch
 through the flat <-> padded layout (ops/layout.py). Per-ray compaction is a
-row sort of where(mask, lattice ordinal, sentinel), cut to s_pad.
+row sort of where(mask, lattice ordinal, sentinel), cut to s_pad. On the
+card, where batch_kernels_take holds (every base.json configuration), two
+kernels of csrc/train_batch.cu take the march with its compaction
+(train_march, one warp a ray, writing each ray's samples left-justified) and
+the flat network inputs (train_emit, one thread a slot), bit-equal to this
+plain path, which runs everywhere else.
 
 Every shape depends only on the arguments, never on the data, and nothing
 syncs with the host or copies to the card: the salts (2,) and n_rays_shift
@@ -28,12 +33,15 @@ the salts are an argument (ngp_tpu draws them from a threefry key, :152);
 n_lattice is computed, not passed.
 """
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ngp_tpu_torch.data.nerf_synthetic import read_rgba
-from ngp_tpu_torch.grid.occupancy import packed_neighborhood, pcg4d, pooled_occupancy
+from ngp_tpu_torch.grid.occupancy import packed_neighborhood, pcg4d, pooled_occupancy, static_dt_mip
+from ngp_tpu_torch.ops import kernels
 from ngp_tpu_torch.ops.layout import SampleLayout, build_layout
 from ngp_tpu_torch.sampling.lattice import (
     SEG,
@@ -46,6 +54,7 @@ from ngp_tpu_torch.sampling.lattice import (
     occupied_window_start,
     packed_march_supported,
 )
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.aabb import AABB
 from ngp_tpu_torch.utils.config import SamplerConfig
 from ngp_tpu_torch.utils.fma import dot_fma, sqrt_rn
@@ -76,6 +85,19 @@ class TrainingBatch(NamedTuple):
     xy: torch.Tensor  # (R, 2) normalized pixel coordinate
 
 
+def batch_kernels_take(cfg: SamplerConfig, occ_aabb, n_window: int, device) -> bool:
+    """Whether train_march and train_emit (csrc/train_batch.cu) generate the
+    batch: tensors on the card, the packed march's lattice
+    (packed_march_supported: constant dt, aabb_scale 1), the occupied box
+    given (the window start k0) and a window of whole segments. The cone
+    lattice, aabb_scale > 1, no occupied box and CPU tensors take the plain
+    path."""
+    n_lattice = n_lattice_points(cfg)
+    n_window = min(n_window or n_lattice, n_lattice)
+    return (torch.device(device).type == "cuda" and packed_march_supported(cfg) and occ_aabb is not None
+            and n_window % SEG == 0)
+
+
 def generate_training_batch(
     cfg: SamplerConfig,
     aabb: AABB,
@@ -104,7 +126,21 @@ def generate_training_batch(
     `n_long` enable the two buckets; `n_seg_cap` > 0 the two-level march
     (arithmetic lattice with the window on), which truncates a ray to its
     first n_seg_cap coarse-kept segments; `want_seg_stat` computes
-    seg_count_hi without the two-level march."""
+    seg_count_hi without the two-level march. The march and the flat inputs
+    are the two kernels where batch_kernels_take holds, else the plain path
+    (counted as train.batch.plain on the card); both give the same batch."""
+    use_kernels = batch_kernels_take(cfg, occ_aabb, n_window, occupancy.device)
+    if occupancy.device.type == "cuda" and not use_kernels:
+        profiling.count("train.batch.plain")
+    return _batch(cfg, aabb, images, xforms, focal_length, principal_point, occupancy, salts, n_rays, n_rays_shift,
+                  capacity, s_pad, stride_denom, index_offset, occ_aabb, n_window, s_short, n_long, n_seg_cap,
+                  want_seg_stat, use_kernels)
+
+
+def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, principal_point, occupancy, salts, n_rays: int,
+           n_rays_shift, capacity: int, s_pad: int, stride_denom: int, index_offset: int, occ_aabb, n_window: int,
+           s_short: int, n_long: int, n_seg_cap: int, want_seg_stat: bool, use_kernels: bool) -> TrainingBatch:
+    """generate_training_batch through the kernels (use_kernels) or the plain path."""
     dev = occupancy.device
     n_images, h, w = images.shape[0], images.shape[1], images.shape[2]
     n_lattice = n_lattice_points(cfg)
@@ -159,24 +195,34 @@ def generate_training_batch(
     coarse_ok = cfg.cone_angle_constant == 0.0 and occ_aabb is not None and n_window % SEG == 0
     seg_on = n_seg_cap > 0 and coarse_ok
     seg_count_hi = torch.zeros((), dtype=torch.int64, device=dev)
-    if seg_on or (want_seg_stat and coarse_ok):
-        n_seg = n_window // SEG
-        cmask = coarse_segment_mask(cfg, pooled_occupancy(cfg, occupancy), o, d, startt, n_seg, k0) & hits[:, None]
-        k_hi = min(int(0.995 * n_rays), n_rays - 1)
-        seg_count_hi = torch.sort(cmask.sum(dim=1)).values[k_hi]
-
-    # one packed 3^3 word answers an 8-point group's occupancy (built in-step)
-    packed = packed_neighborhood(cfg, occupancy) if packed_march_supported(cfg) else None
-
+    n_seg = n_window // SEG
+    k_hi = min(int(0.995 * n_rays), n_rays - 1)
     if seg_on:
-        j_seg = torch.arange(n_seg, dtype=torch.int64, device=dev)[None, :]
-        seg_idx = torch.sort(torch.where(cmask, j_seg, n_seg), dim=1).values[:, :n_seg_cap]
-        counts, masks, lat_all = count_samples_segments(cfg, aabb, occupancy, o, d, startt, k0, seg_idx, packed=packed)
         s_pad = min(s_pad, n_seg_cap * SEG)  # counts never exceed the kept width
+    if use_kernels:
+        # the march writes each ray's samples already left-justified (lat_pad)
+        coarse = seg_on or want_seg_stat
+        counts, lat_pad, seg_counts = train_march(cfg, aabb, occupancy, o, d, startt, k0, hits, n_window,
+                                                  n_seg_cap if seg_on else 0, s_pad, coarse)
+        if coarse:
+            seg_count_hi = torch.sort(seg_counts).values[k_hi]
     else:
-        counts, masks = count_samples(cfg, aabb, occupancy, o, d, startt, return_masks=True, k0=k0, n_window=n_window, packed=packed)
-    masks = masks & hits[:, None]
-    counts = torch.where(hits, counts, 0)
+        if seg_on or (want_seg_stat and coarse_ok):
+            cmask = coarse_segment_mask(cfg, pooled_occupancy(cfg, occupancy), o, d, startt, n_seg, k0) & hits[:, None]
+            seg_count_hi = torch.sort(cmask.sum(dim=1)).values[k_hi]
+
+        # one packed 3^3 word answers an 8-point group's occupancy (built in-step)
+        packed = packed_neighborhood(cfg, occupancy) if packed_march_supported(cfg) else None
+
+        if seg_on:
+            j_seg = torch.arange(n_seg, dtype=torch.int64, device=dev)[None, :]
+            seg_idx = torch.sort(torch.where(cmask, j_seg, n_seg), dim=1).values[:, :n_seg_cap]
+            counts, masks, lat_all = count_samples_segments(cfg, aabb, occupancy, o, d, startt, k0, seg_idx, packed=packed)
+        else:
+            counts, masks = count_samples(cfg, aabb, occupancy, o, d, startt, return_masks=True, k0=k0, n_window=n_window,
+                                          packed=packed)
+        masks = masks & hits[:, None]
+        counts = torch.where(hits, counts, 0)
     n_samples = counts.sum()
     max_ray_count = counts.max()  # before truncation: the s_pad controller sees the tail
     counts = torch.clamp(counts, max=s_pad)  # truncate long rays (cu:408)
@@ -214,28 +260,31 @@ def generate_training_batch(
         valid_long = (ray_valid & is_long)[sel_long]
         layout_long = build_layout(base[sel_long], counts[sel_long], valid_long, capacity, s_pad)
 
-    # per-ray compaction: the occupied window ordinals ascend, so a row sort
-    # of where(mask, ordinal, sentinel) left-justifies them in march order;
-    # on the two-level march the columns carry their own ordinals (lat_all)
-    if seg_on:
-        lat_vals, sentinel = lat_all, (n_seg + 1) * SEG
-    else:
-        lat_vals, sentinel = torch.arange(n_window, dtype=torch.int64, device=dev)[None, :], n_window
-    keys = torch.where(masks & ray_valid[:, None], lat_vals, sentinel)
-    lat_pad = torch.sort(keys, dim=1).values[:, :s_pad]  # (R, s_pad), k0-relative
-
     # flat network inputs, closed-form from the lattice ordinal k0 + j; a
     # full-width layout maps each flat slot to (ray, j)
     lay_all = build_layout(base, counts, ray_valid, capacity, s_pad) if bucketed else layout
-    rid = lay_all.ray_ids
-    flat_lat = torch.where(lay_all.flat_valid, k0[rid] + lat_pad[rid, lay_all.pos_in_ray], 0)
-    # here XLA keeps the multiply and the add apart (no fused multiply-add)
-    if cfg.cone_angle_constant == 0.0:
-        flat_t = startt[rid] + flat_lat.to(torch.float32) * torch.tensor(dt, dtype=torch.float32)
+    if use_kernels:
+        pos, flat_dirs = train_emit(aabb, lay_all, k0, startt, o, d, lat_pad, dt)
     else:
-        flat_t = lattice_t(cfg, startt[rid], flat_lat)
-    flat_pos = o[rid] + flat_t[:, None] * d[rid]
-    flat_dirs = (d[rid] + 1.0) * 0.5
+        # per-ray compaction: the occupied window ordinals ascend, so a row sort
+        # of where(mask, ordinal, sentinel) left-justifies them in march order;
+        # on the two-level march the columns carry their own ordinals (lat_all)
+        if seg_on:
+            lat_vals, sentinel = lat_all, (n_seg + 1) * SEG
+        else:
+            lat_vals, sentinel = torch.arange(n_window, dtype=torch.int64, device=dev)[None, :], n_window
+        keys = torch.where(masks & ray_valid[:, None], lat_vals, sentinel)
+        lat_pad = torch.sort(keys, dim=1).values[:, :s_pad]  # (R, s_pad), k0-relative
+
+        rid = lay_all.ray_ids
+        flat_lat = torch.where(lay_all.flat_valid, k0[rid] + lat_pad[rid, lay_all.pos_in_ray], 0)
+        # here XLA keeps the multiply and the add apart (no fused multiply-add)
+        if cfg.cone_angle_constant == 0.0:
+            flat_t = startt[rid] + flat_lat.to(torch.float32) * torch.tensor(dt, dtype=torch.float32)
+        else:
+            flat_t = lattice_t(cfg, startt[rid], flat_lat)
+        pos = aabb.relative_pos(o[rid] + flat_t[:, None] * d[rid])
+        flat_dirs = (d[rid] + 1.0) * 0.5
 
     dt_pad = dt_pad_long = None
     if cfg.cone_angle_constant != 0.0:
@@ -254,7 +303,7 @@ def generate_training_batch(
         sel_long=sel_long,
         valid_long=valid_long,
         valid_short=valid_short,
-        pos=aabb.relative_pos(flat_pos),
+        pos=pos,
         dirs=flat_dirs,
         dt_pad=dt_pad,
         dt_pad_long=dt_pad_long,
@@ -265,3 +314,105 @@ def generate_training_batch(
         image_index=img,
         xy=xy,
     )
+
+
+# ------------------------------------------------------------------ kernels
+def _library():
+    lib = kernels.library("train_batch")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.train_march.argtypes = [p] * 10 + [i] * 11 + [f] * 9 + [p]
+    lib.train_march.restype = ctypes.c_int
+    lib.train_emit.argtypes = [p] * 10 + [ctypes.c_longlong, i] + [f] * 7 + [p]
+    lib.train_emit.restype = ctypes.c_int
+    return lib
+
+
+def _require(name: str, t: torch.Tensor, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be contiguous {dtype} of shape {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def train_march(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, k0, hits, n_window: int, seg_cap: int, s_pad: int,
+                coarse: bool):
+    """The march kernel (csrc/train_batch.cu) over rays (R,) from their window
+    start k0, on the card: (counts (R,) int64, the samples each ray takes
+    (capped at maximum_marching_steps, not at s_pad; 0 where `hits` is
+    false); lat_pad (R, s_pad) int16, the k0-relative lattice ordinals of its
+    first s_pad samples in march order, then the sentinel (the plain path's
+    row sort); seg_counts (R,) int64, its coarse-kept segments, or None
+    without the coarse pass). seg_cap > 0 marches the first seg_cap kept
+    segments (count_samples_segments), 0 every segment of the window
+    (count_samples); the coarse pass runs with seg_cap > 0 or `coarse`."""
+    if o.device.type != "cuda" or not packed_march_supported(cfg) or n_window % SEG or n_window > n_lattice_points(cfg):
+        raise ValueError("train_march takes CUDA tensors on the packed march's lattice and a window of whole segments")
+    R, dev = o.shape[0], o.device
+    g, nc = cfg.grid_size, cfg.n_cascades
+    n_seg = n_window // SEG
+    cap = min(seg_cap, n_seg)
+    coarse = coarse or cap > 0
+    sentinel = (n_seg + 1) * SEG if cap > 0 else n_window
+    if sentinel >= 1 << 15:
+        raise ValueError(f"a window of {n_window} points overflows the int16 ordinals of lat_pad")
+    o = o.contiguous()
+    _require("o", o, torch.float32, (R, 3), dev)
+    _require("d", d, torch.float32, (R, 3), dev)
+    _require("startt", startt, torch.float32, (R,), dev)
+    _require("k0", k0, torch.int64, (R,), dev)
+    _require("hits", hits, torch.bool, (R,), dev)
+    _require("occupancy", occupancy, torch.bool, (nc, g, g, g), dev)
+    counts = torch.empty((R,), dtype=torch.int64, device=dev)
+    lat_pad = torch.empty((R, s_pad), dtype=torch.int16, device=dev)
+    seg_counts = torch.empty((R,), dtype=torch.int64, device=dev) if coarse else None
+    pooled = pooled_occupancy(cfg, occupancy) if coarse else occupancy
+    # the coarse pass's constants as coarse_segment_mask's float32 tensors see
+    # them: the march's static mip (0 on this lattice) and the next one, the
+    # mip edge's band (bound - 16 dt) and the scene cube's cut, a python
+    # float compared in float32
+    dt = float(cfg.min_cone_stepsize)
+    mip_lo = max(static_dt_mip(dt, g, nc), 0)
+    bound = np.array([(126 + mip_lo) << 23], np.int32).view(np.float32)[0]
+    near = np.float32(bound - np.float32(16.0 * dt))
+    cut = np.float32(0.5 * float(cfg.aabb_scale) + 8.0 * dt)
+    lo, hi = [float(np.float32(v)) for v in aabb.lo], [float(np.float32(v)) for v in aabb.hi]
+    err = _library().train_march(
+        o.data_ptr(), d.data_ptr(), startt.data_ptr(), k0.data_ptr(), hits.data_ptr(), occupancy.data_ptr(),
+        pooled.data_ptr(), counts.data_ptr(), (seg_counts if coarse else counts).data_ptr(), lat_pad.data_ptr(),
+        R, g, pooled.shape[-1], n_seg, cap, int(coarse), mip_lo, min(mip_lo + 1, nc - 1),
+        cfg.maximum_marching_steps, s_pad, sentinel, float(np.float32(dt)), float(near), float(cut), *lo, *hi,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"train_march launch failed: CUDA error {err}")
+    profiling.count("launches.train_march")
+    return counts, lat_pad, seg_counts
+
+
+def train_emit(aabb: AABB, layout: SampleLayout, k0, startt, o, d, lat_pad, dt: float):
+    """The emission kernel (csrc/train_batch.cu) of the flat network inputs
+    over the layout's slots, on the card: (pos (C, 3) relative to the scene
+    box, dirs (C, 3) warped), slot i from its ray's ordinal k0 +
+    lat_pad[ray, j] (0 on an invalid slot) as the plain path computes it."""
+    C, (R, s_pad), dev = layout.ray_ids.shape[0], lat_pad.shape, lat_pad.device
+    o = o.contiguous()
+    _require("ray_ids", layout.ray_ids, torch.int64, (C,), dev)
+    _require("pos_in_ray", layout.pos_in_ray, torch.int64, (C,), dev)
+    _require("flat_valid", layout.flat_valid, torch.bool, (C,), dev)
+    _require("k0", k0, torch.int64, (R,), dev)
+    _require("startt", startt, torch.float32, (R,), dev)
+    _require("o", o, torch.float32, (R, 3), dev)
+    _require("d", d, torch.float32, (R, 3), dev)
+    _require("lat_pad", lat_pad, torch.int16, (R, s_pad), dev)
+    pos = torch.empty((C, 3), dtype=torch.float32, device=dev)
+    dirs = torch.empty((C, 3), dtype=torch.float32, device=dev)
+    lo = [float(np.float32(v)) for v in aabb.lo]
+    diag = [float(np.float32(h - l)) for h, l in zip(aabb.hi, aabb.lo)]  # AABB.diag_t's float32(hi - lo)
+    err = _library().train_emit(
+        layout.ray_ids.data_ptr(), layout.pos_in_ray.data_ptr(), layout.flat_valid.data_ptr(), k0.data_ptr(),
+        startt.data_ptr(), o.data_ptr(), d.data_ptr(), lat_pad.data_ptr(), pos.data_ptr(), dirs.data_ptr(), C, s_pad,
+        float(np.float32(dt)), *lo, *diag, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"train_emit launch failed: CUDA error {err}")
+    profiling.count("launches.train_emit")
+    return pos, dirs
