@@ -58,11 +58,13 @@ Phases, in order; any failure exits non-zero:
      wrapping the kernels' wrappers, with each set's distinct (level, row)
      pairs and bounds beside the uniform case's; then the training batch
      kernels at the training cells' shape (TRAIN_BATCH_SHAPE) on the trained
-     grid and scene, two-level march on and off: the kernels' batch against
-     the plain path's, every field bit for bit, and train_march and
-     train_emit each timed alone (their inputs captured by wrapping their
-     wrappers), with their bounds, beside the whole batch through the
-     kernels and through the plain path;
+     grid and scene, two-level march on and off, and on the cone lattice
+     over five cascades (AABB16_CONFIG trained 8 calls on that scene) at
+     aabb16-oadd-train-800's shape (AABB16_TRAIN_BATCH_SHAPE): the kernels'
+     batch against the plain path's, every field bit for bit, and
+     train_march and train_emit each timed alone (their inputs captured by
+     wrapping their wrappers), with their bounds, beside the whole batch
+     through the kernels and through the plain path;
   5. the protocol CLI (python -m ngp_tpu_torch.experiment.run, called
      in-process) on the card on that scene, with every counter zeroed just
      before and read just after: base.json, --n_steps CLI_STEPS with a
@@ -248,6 +250,12 @@ TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd"
 # the training cells' step shape (portbench's train-800 traffic): n_rays,
 # capacity, s_pad, n_window, s_short, n_long, n_seg_cap
 TRAIN_BATCH_SHAPE = (10240, 1 << 18, 512, 1152, 32, 2560, 96)
+# ngp-aabb16-oadd's sampler and hash scale (portbench/configs/ngp-aabb16-oadd.json)
+# and aabb16-oadd-train-800's step shape on an H100 (the cone lattice marches
+# the whole lattice, 1,664 points, with no coarse pass)
+AABB16_CONFIG = {"samlper": {"aabb_scale": 16, "cone_angle_constant": 0.00390625},
+                 "network": {"encoding": {"per_level_scale": 1.66248}}}
+AABB16_TRAIN_BATCH_SHAPE = (24576, 1 << 18, 256, 1664, 32, 6144, 0)
 # the envmap phase: base.json with envmap.train (its default 256x256 envmap)
 # trained ENVMAP_CALLS train(16, 2**18) calls on the training scene
 ENVMAP_CALLS = 16
@@ -1099,29 +1107,48 @@ def graphed_ms(fn, reps: int = 50) -> float:
 
 @timed
 def phase_train_batch(tb, bw, fp32_flops) -> dict:
-    """The training batch kernels at TRAIN_BATCH_SHAPE on the trained grid and
-    scene, with the two-level march on (n_seg_cap 96) and off: the kernels'
-    batch against the plain path's on the same tensors (every field equal),
-    train_march and train_emit each timed alone on the inputs of that call
-    (captured by wrapping their wrappers; the kernel's device time and its
-    wrapper's eager time), and the whole batch timed through the kernels and
-    through the plain path, each replayed from a CUDA graph as a training
-    step runs it. Bounds in bytes: the march reads a ray's 37 B and writes its
-    counts and its lat_pad row, and reads the cascade-0 occupancy (and the
-    pooled grid) once; the emission reads 17 B a slot, a ray's 36 B and the
-    valid slots' ordinals and writes 24 B a slot."""
+    """The training batch kernels on trained grids and the smoke's scene, in
+    three cases: base.json at TRAIN_BATCH_SHAPE with the two-level march on
+    (n_seg_cap 96) and off, and the cone lattice over five cascades
+    (AABB16_CONFIG, a model of tb's class trained 8 x train(16, 2**18) first,
+    none of whose card batches may take the plain path) at
+    AABB16_TRAIN_BATCH_SHAPE. In each: the kernels' batch against the plain
+    path's on the same tensors (every field equal), the march's counters
+    from one more launch, train_march and train_emit each timed alone on the
+    inputs of that call (captured by wrapping their wrappers; the kernel's
+    device time and its wrapper's eager time), and the whole batch timed
+    through the kernels and through the plain path, each replayed from a
+    CUDA graph as a training step runs it. Bounds in bytes: the march reads
+    a ray's 37 B (and its 16 B of cone anchors) and writes its count, its
+    segment count with the coarse pass and its lat_pad row, and reads once
+    the occupancy of every cascade it marches (cascade 0 alone on the packed
+    lattice) and the pooled grid with the coarse pass; the emission reads
+    17 B a slot, a ray's 36 B (and 17 B more on the cone lattice) and the
+    valid slots' ordinals and writes 24 B a slot and 6 B a step-size slot."""
     from ngp_tpu_torch.sampling import training
+    from ngp_tpu_torch.utils import profiling
 
-    tr, ds = tb._trainer, tb._loop.dataset
-    scfg = tr.config.sampler
-    n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap = TRAIN_BATCH_SHAPE
+    cone_tb = type(tb)(device="cuda")
+    cone_tb.load_model_config_dict(AABB16_CONFIG)
+    cone_tb.load_training_data(f"{SCENE_DIR}/transforms_train.json")
+    plain0 = profiling.get("train.batch.plain")
+    for _ in range(8):
+        cone_tb.train(16, TRAIN_BATCH)
+    n_plain = profiling.get("train.batch.plain") - plain0
+    if n_plain:
+        raise SystemExit(f"{n_plain} card batches of the cone model's training took the plain path")
+    base = TRAIN_BATCH_SHAPE
+    cases = (("two_level", tb, base), ("single_level", tb, base[:6] + (0,)), ("cone", cone_tb, AABB16_TRAIN_BATCH_SHAPE))
     salts = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device="cuda")
     shift = torch.tensor(987654321, dtype=torch.int64, device="cuda")
-    args = (scfg, tr.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), tr.grid.occupancy, salts, n_rays, shift,
-            capacity, s_pad)
-    out = {"shape": list(TRAIN_BATCH_SHAPE)}
     real = {"march": training.train_march, "emit": training.train_emit}
-    for label, cap in (("two_level", n_seg_cap), ("single_level", 0)):
+    out = {"shape": list(base), "cone_shape": list(AABB16_TRAIN_BATCH_SHAPE), "cone_train_batch_plain": n_plain}
+    for label, model, shape in cases:
+        tr, ds = model._trainer, model._loop.dataset
+        scfg = tr.config.sampler
+        n_rays, capacity, s_pad, n_window, s_short, n_long, cap = shape
+        args = (scfg, tr.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), tr.grid.occupancy, salts, n_rays,
+                shift, capacity, s_pad)
         kw = dict(occ_aabb=tr.grid.occ_aabb, n_window=n_window, s_short=s_short, n_long=n_long, n_seg_cap=cap)
         seen = {}
 
@@ -1141,13 +1168,19 @@ def phase_train_batch(tb, bw, fp32_flops) -> dict:
             return training._batch(*args, 0, 0, kw["occ_aabb"], n_window, s_short, n_long, cap, False, False)
 
         equal = batches_equal(got, plain())
-        counts, lat_pad, seg_counts = real["march"](*seen["march"])
-        coarse = seg_counts is not None
+        counters = training.MarchCounters("cuda")
+        _, lat_pad, seg_counts = real["march"](*seen["march"][:-1], counters)
+        totals = dict(zip(training.MARCH_COUNTERS, counters.totals.tolist()))
+        samples = [totals[f"train.batch.samples.mip{k}"] for k in range(scfg.n_cascades)]
+        mode = training.march_mode(scfg)
+        cone, coarse = mode == training.CONE, seg_counts is not None
         g = scfg.grid_size
-        march_bytes = (n_rays * (37 + 8 + 8 * coarse + 2 * lat_pad.shape[1]) + g**3
+        n_grids = 1 if mode == training.PACKED else scfg.n_cascades
+        march_bytes = (n_rays * (37 + 16 * cone + 8 + 8 * coarse + 2 * lat_pad.shape[1]) + n_grids * g**3
                        + (tr.grid.occupancy.numel() // 512 if coarse else 0))
         n_valid = int(got.layout.flat_valid.sum()) + (int(got.layout_long.flat_valid.sum()) if got.layout_long is not None else 0)
-        emit_bytes = capacity * (17 + 24) + n_rays * 36 + 2 * n_valid
+        dt_slots = sum(t.numel() for t in (got.dt_pad, got.dt_pad_long) if t is not None)
+        emit_bytes = capacity * (17 + 24) + n_rays * (36 + 17 * cone) + 2 * n_valid + 6 * dt_slots
         # a kernel's own device time (the profiler's, the median of 20
         # launches) beside its wrapper's eager time, host launch included
         timings = {}
@@ -1164,15 +1197,18 @@ def phase_train_batch(tb, bw, fp32_flops) -> dict:
         out[label] = {"equal": equal, "train_march": march, "train_emit": emit, "batch_ms": batch_ms,
                       "plain_batch_ms": plain_ms, "replaced_plain_ms": replaced_plain_ms,
                       "n_samples": int(got.n_samples), "max_ray_count": int(got.max_ray_count),
-                      "seg_count_hi": int(got.seg_count_hi), "valid_slots": n_valid}
-        print(f"train batch {label} at {TRAIN_BATCH_SHAPE[:6] + (cap,)}: kernels == plain: {equal}; train_march "
+                      "seg_count_hi": int(got.seg_count_hi), "valid_slots": n_valid, "counters": totals,
+                      "points_per_sample": totals["train.batch.points"] / sum(samples) if sum(samples) else None}
+        print(f"train batch {label} at {shape}: kernels == plain: {equal}; train_march "
               f"{march['ms']:.4f} ms (wrapper {march['wrapper_ms']:.4f}; bound {march['bound_ms']:.4f}, "
               f"{march_bytes / 1e6:.1f} MB), train_emit {emit['ms']:.4f} ms (wrapper {emit['wrapper_ms']:.4f}; bound "
               f"{emit['bound_ms']:.4f}, {emit_bytes / 1e6:.1f} MB); whole batch "
               f"{batch_ms:.3f} ms through the kernels, {plain_ms:.3f} ms plain (graphed); samples {int(got.n_samples)}, "
-              f"longest ray {int(got.max_ray_count)}, seg p99.5 {int(got.seg_count_hi)} ({card_line()})")
+              f"longest ray {int(got.max_ray_count)}, seg p99.5 {int(got.seg_count_hi)}, points a sample "
+              f"{out[label]['points_per_sample']}, samples by cascade {samples} ({card_line()})")
         if not equal:
             raise SystemExit(f"the training batch kernels disagree with the plain path ({label})")
+    del cone_tb
     return out
 
 
@@ -2710,6 +2746,7 @@ def main():
                          "none: XLA code of ngp_tpu/sampling/training.py:83-329 and ngp_tpu/sampling/lattice.py",
                          pl[kernel], 0.0 if train_batch["two_level"]["equal"] else float("inf"), timing)
         e["single_level"] = train_batch["single_level"][kernel]
+        e["cone"] = train_batch["cone"][kernel]
         e["launches_by_path"] = by_path(kernel)
         batch_kernels.append(e)
     kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels]

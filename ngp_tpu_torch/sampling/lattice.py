@@ -100,6 +100,24 @@ def n_lattice_points(cfg: SamplerConfig) -> int:
     return -(-n // CHUNK) * CHUNK
 
 
+def cone_anchors(cfg: SamplerConfig, t0: torch.Tensor) -> tuple:
+    """The cone lattice's anchors for march starts t0 (elementwise): (iA, tA,
+    iC, tC), where the arithmetic stretch (step m) ends at ordinal iA, t = tA,
+    and the exponential one (t' = t * (1 + c)) at iC, t = tC; past iC the step
+    is M. lattice_t's closed form; the batch kernels take them as computed
+    here, so their t is the same float32 arithmetic."""
+    m = cfg.min_cone_stepsize
+    c = cfg.cone_angle_constant
+    M = cfg.max_cone_stepsize
+    iA = torch.ceil(torch.clamp(m / c - t0, min=0.0) / m)
+    tA = t0 + iA * m
+    log1pc = float(np.log1p(c))
+    nB = torch.ceil(torch.log(torch.clamp(M / (c * torch.clamp(tA, min=1e-30)), min=1.0)) / log1pc)
+    tC = tA * torch.exp(nB * log1pc)
+    iC = iA + nB
+    return iA, tA, iC, tC
+
+
 def lattice_t(cfg: SamplerConfig, startt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """t of lattice index `idx` for a march starting at `startt` (broadcast).
     c = 0: startt + idx*m; c > 0: the closed form of t' = t + clamp(c*t, m, M)."""
@@ -110,12 +128,8 @@ def lattice_t(cfg: SamplerConfig, startt: torch.Tensor, idx: torch.Tensor) -> to
         return fma(i, m, startt)
     M = cfg.max_cone_stepsize
     t0 = startt
-    iA = torch.ceil(torch.clamp(m / c - t0, min=0.0) / m)
-    tA = t0 + iA * m
+    iA, tA, iC, tC = cone_anchors(cfg, t0)
     log1pc = float(np.log1p(c))
-    nB = torch.ceil(torch.log(torch.clamp(M / (c * torch.clamp(tA, min=1e-30)), min=1.0)) / log1pc)
-    tC = tA * torch.exp(nB * log1pc)
-    iC = iA + nB
     t_a = t0 + i * m
     t_b = tA * torch.exp((i - iA) * log1pc)
     t_c = tC + (i - iC) * M

@@ -15,11 +15,15 @@ n_long longest rays composite in a (n_long, s_pad) bucket and the rest in
 budget are dropped whole, and the survivors fill the flat network batch
 through the flat <-> padded layout (ops/layout.py). Per-ray compaction is a
 row sort of where(mask, lattice ordinal, sentinel), cut to s_pad. On the
-card, where batch_kernels_take holds (every base.json configuration), two
-kernels of csrc/train_batch.cu take the march with its compaction
-(train_march, one warp a ray, writing each ray's samples left-justified) and
-the flat network inputs (train_emit, one thread a slot), bit-equal to this
-plain path, which runs everywhere else.
+card, where batch_kernels_take holds (every configuration given the occupied
+box: the arithmetic lattice at cascade 0 or over the cascades, and the cone
+lattice), two kernels of csrc/train_batch.cu take the march with its
+compaction (train_march, one warp a ray, writing each ray's samples
+left-justified) and the flat network inputs with the cone lattice's step
+sizes (train_emit, one thread a slot or a padded sample), bit-equal to this
+plain path, which runs everywhere else. train_march adds its rays, lat_pad
+slots, tested points and samples by cascade into a MarchCounters buffer on
+the card when it is given one.
 
 Every shape depends only on the arguments, never on the data, and nothing
 syncs with the host or copies to the card: the salts (2,) and n_rays_shift
@@ -46,6 +50,7 @@ from ngp_tpu_torch.ops.layout import SampleLayout, build_layout
 from ngp_tpu_torch.sampling.lattice import (
     SEG,
     coarse_segment_mask,
+    cone_anchors,
     count_samples,
     count_samples_segments,
     lattice_dt,
@@ -85,17 +90,61 @@ class TrainingBatch(NamedTuple):
     xy: torch.Tensor  # (R, 2) normalized pixel coordinate
 
 
+MAX_CASCADES = 8  # csrc/train_batch.cu's MAX_CASCADES
+# train_march's counters, in the order of csrc/train_batch.cu's buffer: rays
+# marched, their lat_pad slots, lattice points whose occupancy the fine march
+# read, and the samples the rays take by cascade
+MARCH_COUNTERS = ("train.batch.rays", "train.batch.lat_slots", "train.batch.points",
+                  *(f"train.batch.samples.mip{k}" for k in range(MAX_CASCADES)))
+PACKED, CASCADE, CONE = 0, 1, 2  # train_march's lattices (csrc/train_batch.cu)
+
+
+class MarchCounters:
+    """train_march's totals on a device (`totals`, int64, MARCH_COUNTERS'
+    order), kept for the process and added to by every launch given them,
+    CUDA-graph replays included, and their host copy: stage() queues the copy
+    without a sync; count(), after a sync that followed it, adds each total's
+    change since the last count to profiling's counters of the same name."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self.totals = torch.zeros((len(MARCH_COUNTERS),), dtype=torch.int64, device=device)
+        self._host = torch.zeros((len(MARCH_COUNTERS),), dtype=torch.int64)
+        if device.type == "cuda":
+            self._host = self._host.pin_memory()
+        self._seen = [0] * len(MARCH_COUNTERS)
+
+    def stage(self):
+        self._host.copy_(self.totals, non_blocking=True)
+
+    def count(self):
+        now = self._host.tolist()
+        for name, v, seen in zip(MARCH_COUNTERS, now, self._seen, strict=True):
+            if v != seen:
+                profiling.count(name, v - seen)
+        self._seen = now
+
+
+def march_mode(cfg: SamplerConfig) -> int:
+    """train_march's lattice: CONE for cone_angle_constant > 0, PACKED where
+    one packed word answers a segment (packed_march_supported), else CASCADE
+    (per-point cascades on the arithmetic lattice)."""
+    if cfg.cone_angle_constant != 0.0:
+        return CONE
+    return PACKED if packed_march_supported(cfg) else CASCADE
+
+
 def batch_kernels_take(cfg: SamplerConfig, occ_aabb, n_window: int, device) -> bool:
     """Whether train_march and train_emit (csrc/train_batch.cu) generate the
-    batch: tensors on the card, the packed march's lattice
-    (packed_march_supported: constant dt, aabb_scale 1), the occupied box
-    given (the window start k0) and a window of whole segments. The cone
-    lattice, aabb_scale > 1, no occupied box and CPU tensors take the plain
+    batch: tensors on the card, the occupied box given (the window start k0;
+    on the cone lattice, which marches whole, the span a ray walks), a window
+    of whole segments whose ordinals fit lat_pad's int16, and at most
+    MAX_CASCADES cascades. No occupied box and CPU tensors take the plain
     path."""
     n_lattice = n_lattice_points(cfg)
-    n_window = min(n_window or n_lattice, n_lattice)
-    return (torch.device(device).type == "cuda" and packed_march_supported(cfg) and occ_aabb is not None
-            and n_window % SEG == 0)
+    n_window = n_lattice if cfg.cone_angle_constant != 0.0 else min(n_window or n_lattice, n_lattice)
+    return (torch.device(device).type == "cuda" and occ_aabb is not None and n_window % SEG == 0
+            and n_window + SEG < 1 << 15 and cfg.n_cascades <= MAX_CASCADES)
 
 
 def generate_training_batch(
@@ -119,6 +168,7 @@ def generate_training_batch(
     n_long: int = 0,
     n_seg_cap: int = 0,
     want_seg_stat: bool = False,
+    counters: MarchCounters | None = None,
 ) -> TrainingBatch:
     """`occ_aabb` with `n_window` clips each ray's march to the window of
     n_window lattice points from its entry into the occupied box (the
@@ -128,18 +178,20 @@ def generate_training_batch(
     first n_seg_cap coarse-kept segments; `want_seg_stat` computes
     seg_count_hi without the two-level march. The march and the flat inputs
     are the two kernels where batch_kernels_take holds, else the plain path
-    (counted as train.batch.plain on the card); both give the same batch."""
+    (counted as train.batch.plain on the card); both give the same batch.
+    The kernels' march adds its counts into `counters` where given."""
     use_kernels = batch_kernels_take(cfg, occ_aabb, n_window, occupancy.device)
     if occupancy.device.type == "cuda" and not use_kernels:
         profiling.count("train.batch.plain")
     return _batch(cfg, aabb, images, xforms, focal_length, principal_point, occupancy, salts, n_rays, n_rays_shift,
                   capacity, s_pad, stride_denom, index_offset, occ_aabb, n_window, s_short, n_long, n_seg_cap,
-                  want_seg_stat, use_kernels)
+                  want_seg_stat, use_kernels, counters)
 
 
 def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, principal_point, occupancy, salts, n_rays: int,
            n_rays_shift, capacity: int, s_pad: int, stride_denom: int, index_offset: int, occ_aabb, n_window: int,
-           s_short: int, n_long: int, n_seg_cap: int, want_seg_stat: bool, use_kernels: bool) -> TrainingBatch:
+           s_short: int, n_long: int, n_seg_cap: int, want_seg_stat: bool, use_kernels: bool,
+           counters: MarchCounters | None = None) -> TrainingBatch:
     """generate_training_batch through the kernels (use_kernels) or the plain path."""
     dev = occupancy.device
     n_images, h, w = images.shape[0], images.shape[1], images.shape[2]
@@ -199,11 +251,19 @@ def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, princip
     k_hi = min(int(0.995 * n_rays), n_rays - 1)
     if seg_on:
         s_pad = min(s_pad, n_seg_cap * SEG)  # counts never exceed the kept width
+    cone = cfg.cone_angle_constant != 0.0
+    # the row sort's sentinel: the ordinal past the window (the two-level
+    # march's columns past its segment past the window)
+    sentinel = (n_seg + 1) * SEG if seg_on else n_window
+    anchors = None
     if use_kernels:
         # the march writes each ray's samples already left-justified (lat_pad)
-        coarse = seg_on or want_seg_stat
+        coarse = coarse_ok and (seg_on or want_seg_stat)
+        if cone:
+            anchors = torch.stack(cone_anchors(cfg, startt), dim=-1).contiguous()  # (R, 4) iA, tA, iC, tC
         counts, lat_pad, seg_counts = train_march(cfg, aabb, occupancy, o, d, startt, k0, hits, n_window,
-                                                  n_seg_cap if seg_on else 0, s_pad, coarse)
+                                                  n_seg_cap if seg_on else 0, s_pad, coarse, occ_aabb, anchors,
+                                                  counters)
         if coarse:
             seg_count_hi = torch.sort(seg_counts).values[k_hi]
     else:
@@ -263,16 +323,15 @@ def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, princip
     # flat network inputs, closed-form from the lattice ordinal k0 + j; a
     # full-width layout maps each flat slot to (ray, j)
     lay_all = build_layout(base, counts, ray_valid, capacity, s_pad) if bucketed else layout
+    dt_pad = dt_pad_long = None
     if use_kernels:
-        pos, flat_dirs = train_emit(aabb, lay_all, k0, startt, o, d, lat_pad, dt)
+        pos, flat_dirs, dt_pad, dt_pad_long = train_emit(cfg, aabb, lay_all, k0, startt, o, d, lat_pad, ray_valid,
+                                                         sel_long, s_short, sentinel, anchors)
     else:
         # per-ray compaction: the occupied window ordinals ascend, so a row sort
         # of where(mask, ordinal, sentinel) left-justifies them in march order;
         # on the two-level march the columns carry their own ordinals (lat_all)
-        if seg_on:
-            lat_vals, sentinel = lat_all, (n_seg + 1) * SEG
-        else:
-            lat_vals, sentinel = torch.arange(n_window, dtype=torch.int64, device=dev)[None, :], n_window
+        lat_vals = lat_all if seg_on else torch.arange(n_window, dtype=torch.int64, device=dev)[None, :]
         keys = torch.where(masks & ray_valid[:, None], lat_vals, sentinel)
         lat_pad = torch.sort(keys, dim=1).values[:, :s_pad]  # (R, s_pad), k0-relative
 
@@ -285,13 +344,11 @@ def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, princip
             flat_t = lattice_t(cfg, startt[rid], flat_lat)
         pos = aabb.relative_pos(o[rid] + flat_t[:, None] * d[rid])
         flat_dirs = (d[rid] + 1.0) * 0.5
-
-    dt_pad = dt_pad_long = None
-    if cfg.cone_angle_constant != 0.0:
-        dts = lattice_dt(cfg, lattice_t(cfg, startt[:, None], k0[:, None] + lat_pad))  # (R, s_pad)
-        dt_pad = dts[:, :s_short]
-        if bucketed:
-            dt_pad_long = dts[sel_long]
+        if cone:
+            dts = lattice_dt(cfg, lattice_t(cfg, startt[:, None], k0[:, None] + lat_pad))  # (R, s_pad)
+            dt_pad = dts[:, :s_short]
+            if bucketed:
+                dt_pad_long = dts[sel_long]
 
     return TrainingBatch(
         rays_o=o,
@@ -320,9 +377,9 @@ def _batch(cfg: SamplerConfig, aabb: AABB, images, xforms, focal_length, princip
 def _library():
     lib = kernels.library("train_batch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.train_march.argtypes = [p] * 10 + [i] * 11 + [f] * 9 + [p]
+    lib.train_march.argtypes = [p] * 13 + [i] * 15 + [f] * 13 + [p]
     lib.train_march.restype = ctypes.c_int
-    lib.train_emit.argtypes = [p] * 10 + [ctypes.c_longlong, i] + [f] * 7 + [p]
+    lib.train_emit.argtypes = [p] * 15 + [ctypes.c_longlong] + [i] * 6 + [f] * 10 + [p]
     lib.train_emit.restype = ctypes.c_int
     return lib
 
@@ -333,8 +390,23 @@ def _require(name: str, t: torch.Tensor, dtype, shape, device):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _f32(v) -> float:
+    """A python float as the float32 value torch takes it as."""
+    return float(np.float32(v))
+
+
+def _cone_constants(cfg: SamplerConfig) -> list:
+    """(c, M, log1p(c)) as float32, as lattice_t and lattice_dt take them."""
+    c = cfg.cone_angle_constant
+    return [_f32(c), _f32(cfg.max_cone_stepsize), _f32(np.log1p(c)) if c else 0.0]
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def train_march(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, k0, hits, n_window: int, seg_cap: int, s_pad: int,
-                coarse: bool):
+                coarse: bool, occ_aabb=None, anchors=None, counters: MarchCounters | None = None):
     """The march kernel (csrc/train_batch.cu) over rays (R,) from their window
     start k0, on the card: (counts (R,) int64, the samples each ray takes
     (capped at maximum_marching_steps, not at s_pad; 0 where `hits` is
@@ -343,9 +415,18 @@ def train_march(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, k0, hit
     row sort); seg_counts (R,) int64, its coarse-kept segments, or None
     without the coarse pass). seg_cap > 0 marches the first seg_cap kept
     segments (count_samples_segments), 0 every segment of the window
-    (count_samples); the coarse pass runs with seg_cap > 0 or `coarse`."""
-    if o.device.type != "cuda" or not packed_march_supported(cfg) or n_window % SEG or n_window > n_lattice_points(cfg):
-        raise ValueError("train_march takes CUDA tensors on the packed march's lattice and a window of whole segments")
+    (count_samples); the coarse pass runs with seg_cap > 0 or `coarse`
+    (constant dt only). On the cone lattice (k0 zero, the window the whole
+    lattice) it takes the rays' cone_anchors (R, 4) and the occupied box
+    occ_aabb (2, 3), and walks each ray only where it can reach that box.
+    With `counters` it adds its counts there."""
+    mode = march_mode(cfg)
+    n_lattice = n_lattice_points(cfg)
+    if (o.device.type != "cuda" or n_window % SEG or n_window > n_lattice or cfg.n_cascades > MAX_CASCADES
+            or (mode == CONE and (n_window != n_lattice or seg_cap or coarse or occ_aabb is None or anchors is None))):
+        raise ValueError("train_march takes CUDA tensors, a window of whole segments and at most "
+                         f"{MAX_CASCADES} cascades; on the cone lattice the whole lattice with its anchors and "
+                         "the occupied box, and no coarse pass")
     R, dev = o.shape[0], o.device
     g, nc = cfg.grid_size, cfg.n_cascades
     n_seg = n_window // SEG
@@ -361,25 +442,33 @@ def train_march(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, k0, hit
     _require("k0", k0, torch.int64, (R,), dev)
     _require("hits", hits, torch.bool, (R,), dev)
     _require("occupancy", occupancy, torch.bool, (nc, g, g, g), dev)
+    if mode == CONE:
+        _require("anchors", anchors, torch.float32, (R, 4), dev)
+        _require("occ_aabb", occ_aabb, torch.float32, (2, 3), dev)
+    if counters is not None:
+        _require("counters", counters.totals, torch.int64, (len(MARCH_COUNTERS),), dev)
     counts = torch.empty((R,), dtype=torch.int64, device=dev)
     lat_pad = torch.empty((R, s_pad), dtype=torch.int16, device=dev)
     seg_counts = torch.empty((R,), dtype=torch.int64, device=dev) if coarse else None
     pooled = pooled_occupancy(cfg, occupancy) if coarse else occupancy
     # the coarse pass's constants as coarse_segment_mask's float32 tensors see
-    # them: the march's static mip (0 on this lattice) and the next one, the
-    # mip edge's band (bound - 16 dt) and the scene cube's cut, a python
-    # float compared in float32
+    # them: the march's static mip (0 on base.json's lattice) and the next
+    # one, the mip edge's band (bound - 16 dt) and the scene cube's cut, a
+    # python float compared in float32
     dt = float(cfg.min_cone_stepsize)
     mip_lo = max(static_dt_mip(dt, g, nc), 0)
     bound = np.array([(126 + mip_lo) << 23], np.int32).view(np.float32)[0]
     near = np.float32(bound - np.float32(16.0 * dt))
     cut = np.float32(0.5 * float(cfg.aabb_scale) + 8.0 * dt)
-    lo, hi = [float(np.float32(v)) for v in aabb.lo], [float(np.float32(v)) for v in aabb.hi]
+    lo, hi = [_f32(v) for v in aabb.lo], [_f32(v) for v in aabb.hi]
     err = _library().train_march(
-        o.data_ptr(), d.data_ptr(), startt.data_ptr(), k0.data_ptr(), hits.data_ptr(), occupancy.data_ptr(),
-        pooled.data_ptr(), counts.data_ptr(), (seg_counts if coarse else counts).data_ptr(), lat_pad.data_ptr(),
-        R, g, pooled.shape[-1], n_seg, cap, int(coarse), mip_lo, min(mip_lo + 1, nc - 1),
-        cfg.maximum_marching_steps, s_pad, sentinel, float(np.float32(dt)), float(near), float(cut), *lo, *hi,
+        o.data_ptr(), d.data_ptr(), startt.data_ptr(), k0.data_ptr(), hits.data_ptr(), _ptr(anchors),
+        occupancy.data_ptr(), pooled.data_ptr(), _ptr(occ_aabb if mode == CONE else None), counts.data_ptr(),
+        (seg_counts if coarse else counts).data_ptr(), lat_pad.data_ptr(),
+        _ptr(counters.totals if counters is not None else None),
+        mode, R, g, pooled.shape[-1], nc, n_seg, cap, int(coarse), mip_lo, min(mip_lo + 1, nc - 1),
+        int(cfg.aabb_scale != 1), cfg.maximum_marching_steps, s_pad, sentinel, n_lattice, _f32(dt), float(near),
+        float(cut), _f32(16.0 * dt), *_cone_constants(cfg), *lo, *hi,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -388,12 +477,18 @@ def train_march(cfg: SamplerConfig, aabb: AABB, occupancy, o, d, startt, k0, hit
     return counts, lat_pad, seg_counts
 
 
-def train_emit(aabb: AABB, layout: SampleLayout, k0, startt, o, d, lat_pad, dt: float):
+def train_emit(cfg: SamplerConfig, aabb: AABB, layout: SampleLayout, k0, startt, o, d, lat_pad, ray_valid, sel_long,
+               s_short: int, sentinel: int, anchors=None):
     """The emission kernel (csrc/train_batch.cu) of the flat network inputs
     over the layout's slots, on the card: (pos (C, 3) relative to the scene
-    box, dirs (C, 3) warped), slot i from its ray's ordinal k0 +
-    lat_pad[ray, j] (0 on an invalid slot) as the plain path computes it."""
+    box, dirs (C, 3) warped, dt_pad, dt_pad_long), slot i from its ray's
+    ordinal k0 + lat_pad[ray, j] (0 on an invalid slot) as the plain path
+    computes it. On the cone lattice (`anchors` (R, 4) given) also the step
+    sizes lattice_dt of the (R, s_short) padded samples and of the long
+    bucket's rows `sel_long` (n_long,) at width s_pad, an invalid ray's
+    (not `ray_valid`) at the sentinel; else dt_pad and dt_pad_long are None."""
     C, (R, s_pad), dev = layout.ray_ids.shape[0], lat_pad.shape, lat_pad.device
+    cone = anchors is not None
     o = o.contiguous()
     _require("ray_ids", layout.ray_ids, torch.int64, (C,), dev)
     _require("pos_in_ray", layout.pos_in_ray, torch.int64, (C,), dev)
@@ -405,14 +500,26 @@ def train_emit(aabb: AABB, layout: SampleLayout, k0, startt, o, d, lat_pad, dt: 
     _require("lat_pad", lat_pad, torch.int16, (R, s_pad), dev)
     pos = torch.empty((C, 3), dtype=torch.float32, device=dev)
     dirs = torch.empty((C, 3), dtype=torch.float32, device=dev)
-    lo = [float(np.float32(v)) for v in aabb.lo]
-    diag = [float(np.float32(h - l)) for h, l in zip(aabb.hi, aabb.lo)]  # AABB.diag_t's float32(hi - lo)
+    dt_pad = dt_pad_long = None
+    n_long = 0
+    if cone:
+        _require("anchors", anchors, torch.float32, (R, 4), dev)
+        _require("ray_valid", ray_valid, torch.bool, (R,), dev)
+        dt_pad = torch.empty((R, s_short), dtype=torch.float32, device=dev)
+        if sel_long is not None:
+            n_long = sel_long.shape[0]
+            _require("sel_long", sel_long, torch.int64, (n_long,), dev)
+            dt_pad_long = torch.empty((n_long, s_pad), dtype=torch.float32, device=dev)
+    lo = [_f32(v) for v in aabb.lo]
+    diag = [_f32(h - l) for h, l in zip(aabb.hi, aabb.lo)]  # AABB.diag_t's float32(hi - lo)
     err = _library().train_emit(
         layout.ray_ids.data_ptr(), layout.pos_in_ray.data_ptr(), layout.flat_valid.data_ptr(), k0.data_ptr(),
-        startt.data_ptr(), o.data_ptr(), d.data_ptr(), lat_pad.data_ptr(), pos.data_ptr(), dirs.data_ptr(), C, s_pad,
-        float(np.float32(dt)), *lo, *diag, torch.cuda.current_stream(dev).cuda_stream,
+        startt.data_ptr(), o.data_ptr(), d.data_ptr(), lat_pad.data_ptr(), _ptr(anchors),
+        _ptr(ray_valid if cone else None), _ptr(sel_long if cone else None), pos.data_ptr(), dirs.data_ptr(),
+        _ptr(dt_pad), _ptr(dt_pad_long), C, R, s_pad, s_short, n_long, sentinel, int(cone),
+        _f32(cfg.min_cone_stepsize), *_cone_constants(cfg), *lo, *diag, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"train_emit launch failed: CUDA error {err}")
     profiling.count("launches.train_emit")
-    return pos, dirs
+    return pos, dirs, dt_pad, dt_pad_long

@@ -71,7 +71,7 @@ from ngp_tpu_torch.render.envmap import (
     read_envmap,
 )
 from ngp_tpu_torch.sampling.lattice import n_lattice_points
-from ngp_tpu_torch.sampling.training import generate_training_batch
+from ngp_tpu_torch.sampling.training import MarchCounters, generate_training_batch
 from ngp_tpu_torch.train.optimizer import Optimizer
 from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.aabb import AABB
@@ -248,6 +248,7 @@ class Trainer:
     capture_reserved_bytes: int = 0  # device memory the captures so far added to the graph pool
     envmap: EnvmapState | None = None  # the trainable envmap (config.envmap.train)
     mesh: object = None  # parallel/mesh.Mesh -> data-parallel steps, calls and grid updates
+    march_counters: MarchCounters | None = None  # train_march's totals on the device, read with a call's stats
     _cache: collections.OrderedDict = field(default_factory=collections.OrderedDict)
     _pool: tuple | None = None
 
@@ -267,6 +268,7 @@ class Trainer:
             aabb=AABB.scene(config.sampler.aabb_scale),
             envmap=create_envmap_state(config.envmap, model.hash_table.device) if config.envmap.train else None,
             mesh=mesh,
+            march_counters=MarchCounters(model.hash_table.device),
         )
 
     @property
@@ -333,13 +335,21 @@ class Trainer:
             build = lambda: functools.partial(self.run_step, shape)  # noqa: E731
         return self._cached(("step", *shape, self._semantic_key()), build)
 
+    def _call_key(self, shape: StepShape, n_steps: int) -> tuple:
+        return ("call", *shape, n_steps, self._semantic_key())
+
+    def has_call(self, shape: StepShape, n_steps: int) -> bool:
+        """Whether train_call of this shape is in the cache (on the card,
+        captured: it replays without a new capture)."""
+        return self._call_key(StepShape(*shape), n_steps) in self._cache
+
     def train_call(self, n_rays: int, capacity: int, s_pad: int, n_steps: int, n_window: int = 0, s_short: int = 0,
                    n_long: int = 0, n_seg_cap: int = 0) -> TrainCall:
         """`n_steps` steps of one shape as one call (cached by ngp_tpu's key;
         the GRAPH_CACHE most recent calls are kept); with a mesh the sharded
         call of that global shape (parallel/mesh.make_dp_train_call)."""
         shape = StepShape(n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap)
-        key = ("call", shape.n_rays, capacity, s_pad, n_steps, n_window, s_short, n_long, n_seg_cap, self._semantic_key())
+        key = self._call_key(shape, n_steps)
         if self._data_parallel():
             from ngp_tpu_torch.parallel.mesh import make_dp_train_call
 
@@ -385,7 +395,7 @@ class Trainer:
         batch = generate_training_batch(
             scfg, self.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), self.grid.occupancy, salts, n_rays,
             n_rays_shift, capacity, s_pad, stride_denom=stride_denom, index_offset=index_offset, occ_aabb=self.grid.occ_aabb,
-            n_window=n_window, s_short=s_short, n_long=n_long, n_seg_cap=n_seg_cap,
+            n_window=n_window, s_short=s_short, n_long=n_long, n_seg_cap=n_seg_cap, counters=self.march_counters,
         )
         bg_linear = srgb_to_linear(torch.as_tensor(bg_srgb, dtype=torch.float32, device=self.device))
         if self.envmap is not None:
@@ -497,7 +507,7 @@ class Trainer:
         b = generate_training_batch(
             self.config.sampler, self.aabb, ds.images, ds.xforms, ds.focal_length, (0.5, 0.5), self.grid.occupancy,
             salts, n_probe, n_rays_shift % _U32, n_probe, 32, occ_aabb=self.grid.occ_aabb, n_window=n_window,
-            want_seg_stat=True,
+            want_seg_stat=True, counters=self.march_counters,
         )
         probe = torch.stack([b.n_samples, b.max_ray_count, b.seg_count_hi])
         if self._data_parallel():
@@ -687,7 +697,9 @@ class TrainingLoop:
         train.sync.grid_box and train.probe; train.steps (training_ms) holds
         train.capture and the stats' readback train.sync.stats. Counters:
         train.calls, train.graphed_calls and, for a call that ran its steps
-        eagerly, train.eager.<cause>."""
+        eagerly, train.eager.<cause>; at train.sync.stats the batch march's
+        sampling.training.MARCH_COUNTERS (train.batch.points,
+        train.batch.samples.mip<k>, ...) of the call's steps and probe."""
         tr, ds, gen = self.trainer, self.dataset, self.generator
         scfg = tr.config.sampler
         profiling.count("train.calls")
@@ -704,7 +716,9 @@ class TrainingLoop:
             self.n_window = min(n_lattice_points(scfg), max(128, 128 << int(np.ceil(np.log2(max(need / 128, 1))))))
             # while the two-level march is off, a periodic probe keeps the
             # segment estimate fresh so it engages once the grid thins out
-            if self.n_seg_cap == 0 and self.i_step > 0 and (self.i_step // n_training_steps) % 16 == 0:
+            # (the arithmetic lattice only: the cone lattice has no coarse pass)
+            if (scfg.cone_angle_constant == 0.0 and self.n_seg_cap == 0 and self.i_step > 0
+                    and (self.i_step // n_training_steps) % 16 == 0):
                 self._probe_next = True
             if self._per_ray_est is None or self._probe_next:
                 # size n_rays / s_pad from the grid this call marches; the probe
@@ -778,12 +792,14 @@ class TrainingLoop:
         shape = self._choose_shape(n_training_steps, commit=True)
         n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap, _ = shape
         # under the stochastic backward ngp_tpu scans `stochastic_fuse_steps`
-        # steps a dispatch; graphs only for a shape equal to the last call's,
-        # so a transient controller shape does not pay a capture
+        # steps a dispatch; graphs only for a shape equal to the last call's
+        # or one whose call is cached, so a transient controller shape does
+        # not pay a capture and a shape the controllers return to replays
         fuse = n_training_steps
         if tr.model.grid_spec.stochastic_bwd:
             fuse = min(n_training_steps, max(int(self.stochastic_fuse_steps), 0))
-        use_fused = shape == self._last_shape and fuse > 1 and n_training_steps % max(fuse, 1) == 0
+        use_fused = ((shape == self._last_shape or tr.has_call(shape[:7], fuse)) and fuse > 1
+                     and n_training_steps % max(fuse, 1) == 0)
         cause = None if use_fused else self._eager_cause(shape)
         self._last_shape = shape
 
@@ -838,9 +854,15 @@ class TrainingLoop:
             # (testbed.cu:295-298), after the call's steps, outside any graph
             tr.envmap.n_accum += n_training_steps
             envmap_apply(tr.envmap)
-        # one device -> host copy of the call's telemetry (testbed.cu:266-289)
+        # one device -> host copy of the call's telemetry (testbed.cu:266-289);
+        # the batch march's counters come back beside it, queued before it
+        counters = tr.march_counters
         with profiling.span("train.sync.stats"):
+            if counters is not None:
+                counters.stage()
             host = out.cpu()
+        if counters is not None:
+            counters.count()
         stats = dict(zip(STAT_KEYS, host.numpy().T, strict=True))
         tr.optimizer.advance(n_training_steps)
         self.i_step += n_training_steps

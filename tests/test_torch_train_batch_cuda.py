@@ -5,6 +5,11 @@ training cells' shape, with the two-level march off, at the probe's shape and
 for a data-parallel shard, on a blob grid, a dense grid and a grid of
 one-cell slabs; the march alone on rays one float32 ulp under cell faces; a
 batch replayed from a CUDA graph; and a captured training call's launches.
+The same for the large-scene configuration (aabb_scale 16: five cascades;
+the cone lattice dt = t/256, and the arithmetic lattice over the cascades):
+the batch on the blob, dense and slab grids and on one with occupied boxes in
+every cascade, rays crossing every cascade and one ulp under the faces of
+each, a graph replay, and a captured call's launches and cascade counters.
 Each test skips without a card. The file imports torch, numpy and
 ngp_tpu_torch only, so on a machine with a card (where jax is not installed)
 it runs from the repository root as
@@ -55,12 +60,34 @@ def card():
     return torch.device("cuda")
 
 
-def _cfg():
-    return NGPConfig.from_json({}).sampler  # base.json's sampler: grid 128, 1024 steps
+# ngp-aabb16-oadd's sampler (portbench/configs/ngp-aabb16-oadd.json) and its
+# arithmetic-lattice twin
+AABB16 = {"aabb_scale": 16, "cone_angle_constant": 0.00390625}
+AABB16_ARITH = {"aabb_scale": 16}
+# the large-scene cell's shapes: the loop's window is ignored on the cone
+# lattice, which marches whole (1,664 points). "cell" is aabb16-oadd-train-800's
+# checked step shape on an H100 (n_rays, capacity, s_pad, n_window, s_short,
+# n_long, n_seg_cap)
+AABB16_CELL_SHAPE = (24576, 1 << 18, 256, 1664, 32, 6144, 0)
+CONE_SHAPES = {
+    "cell": dict(shape=AABB16_CELL_SHAPE, scale=1.0),
+    "rays_8192": dict(shape=(8192, 1 << 18, 256, 1664, 64, 2048, 0), scale=1.0),
+    "single_bucket": dict(shape=(4096, 1 << 18, 512, 512, 0, 0, 0), scale=1.0),
+    "probe": dict(shape=(1024, 1024, 32, 1664, 0, 0, 0), want_seg_stat=True, scale=1.0),
+    "near_cameras": dict(shape=(8192, 1 << 18, 256, 1664, 64, 2048, 0), scale=0.33),
+}
+ARITH_SHAPES = {
+    "cell": dict(shape=(4096, 1 << 18, 512, 4096, 64, 1024, 96), scale=1.0),
+    "single_level": dict(shape=(4096, 1 << 18, 512, 4096, 64, 1024, 0), scale=1.0),
+}
 
 
-def _scene(card, n_images=16, size=100, seed=0):
-    """Cameras on a ring of radius 4 around the scene, random fp16 images."""
+def _cfg(**sampler):
+    return NGPConfig.from_json({"samlper": sampler}).sampler  # base.json's sampler: grid 128, 1024 steps
+
+
+def _scene(card, n_images=16, size=100, seed=0, scale=0.33):
+    """Cameras on a ring of radius 4 (times `scale` in the scene's units) around the scene, random fp16 images."""
     from ngp_tpu_torch.data.synthetic import look_at_pose
     from ngp_tpu_torch.utils.camera import opengl_to_opencv
 
@@ -70,7 +97,7 @@ def _scene(card, n_images=16, size=100, seed=0):
         phi = 2.4 * k
         eye = 4.0 * np.array([np.cos(phi) * 0.8, np.sin(phi) * 0.8, 0.3 + 0.5 * np.sin(1.3 * k)])
         poses.append(look_at_pose(eye))
-    xforms = opengl_to_opencv(np.stack(poses), 0.33, [0.5, 0.5, 0.5]).to(card)
+    xforms = opengl_to_opencv(np.stack(poses), scale, [0.5, 0.5, 0.5]).to(card)
     images = torch.from_numpy(rng.uniform(0, 1, (n_images, size, size, 4)).astype(np.float16)).to(card)
     focal = 0.5 * size / np.tan(0.5 * 0.6911112070083618)
     return images, xforms, (focal, focal)
@@ -80,7 +107,9 @@ def _grid(cfg, kind: str, card):
     """The occupancy grid and its occupied box after update_occupancy of a
     density: three soft blobs, everything, or cascade-0 slabs one cell thick
     at every even x (y in [16, 112)), so many lattice points lie within a
-    cell of a face between an occupied and an empty cell."""
+    cell of a face between an occupied and an empty cell; "cascades": the
+    blobs and, in every outer cascade, random boxes and such slabs on half
+    of its x range."""
     g = cfg.grid_size
     ax = (np.arange(g) + 0.5) / g
     z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
@@ -92,6 +121,17 @@ def _grid(cfg, kind: str, card):
             dens[0] += np.exp(-(((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2) / 0.01)).astype(np.float32)
     elif kind == "dense":
         dens[:] = 1.0
+    elif kind == "cascades":
+        rng = np.random.default_rng(7)
+        for _ in range(3):
+            c = rng.uniform(0.35, 0.65, 3)
+            dens[0] += np.exp(-(((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2) / 0.01)).astype(np.float32)
+        yi, xi = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
+        for k in range(1, cfg.n_cascades):
+            for _ in range(6):
+                lo, w = rng.integers(0, g - 24, 3), rng.integers(2, 24, 3)
+                dens[k, lo[2] : lo[2] + w[2], lo[1] : lo[1] + w[1], lo[0] : lo[0] + w[0]] = 1.0  # axes (z, y, x)
+            dens[k][: g // 2, (yi >= 8) & (yi < g - 8) & (xi % 2 == 0) & (xi < g // 2)] = 1.0
     else:
         yi, xi = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
         dens[0][:, (yi >= 16) & (yi < 112) & (xi % 2 == 0)] = 1.0  # axes (z, y, x)
@@ -101,7 +141,7 @@ def _grid(cfg, kind: str, card):
 
 
 def _args(cfg, card, grid, spec, seed=5):
-    images, xforms, focal = _scene(card, seed=seed)
+    images, xforms, focal = _scene(card, seed=seed, scale=spec.get("scale", 0.33))
     occ, box = _grid(cfg, grid, card)
     n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap = spec["shape"]
     salts = torch.tensor([0x9E3779B9 ^ seed, 12345 + seed], dtype=torch.int64, device=card)
@@ -289,3 +329,226 @@ def test_train_call_launches_and_batch(card, tmp_path):
                                          "seg_count_hi")]
     assert torch.equal(graphed[:, cols], eager[:, cols])
     assert bool((graphed[:, cols[0]] > 0).all())
+
+
+def _launch_and_compare(card, cfg, pos, kw, counters=None):
+    """The kernels' batch (one launch of each kernel, no plain count) against
+    the plain path's on the same tensors: (kernels' batch, plain batch)."""
+    assert training.batch_kernels_take(cfg, kw["occ_aabb"], kw["n_window"], card)
+    before = {k: profiling.get(k) for k in ("launches.train_march", "launches.train_emit", "train.batch.plain")}
+    got = training.generate_training_batch(*pos, **kw, counters=counters)
+    torch.cuda.synchronize()
+    after = {k: profiling.get(k) for k in before}
+    assert after["launches.train_march"] - before["launches.train_march"] == 1
+    assert after["launches.train_emit"] - before["launches.train_emit"] == 1
+    assert after["train.batch.plain"] == before["train.batch.plain"]
+    want = _plain(pos, kw)
+    _assert_same(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("grid", GRIDS + ("cascades",))
+@pytest.mark.parametrize("shape", list(CONE_SHAPES))
+def test_cone_batch_kernels_equal_plain(card, shape, grid):
+    """ngp-aabb16-oadd's batch (the cone lattice over five cascades): every
+    field of the kernels' batch equals the plain path's, bit for bit (dt_pad
+    and dt_pad_long included); the march's counters add up to the batch's
+    samples and its rays."""
+    cfg = _cfg(**AABB16)
+    assert cfg.n_cascades == 5 and training.march_mode(cfg) == training.CONE
+    pos, kw = _args(cfg, card, grid, CONE_SHAPES[shape])
+    counters = training.MarchCounters(card)
+    got, want = _launch_and_compare(card, cfg, pos, kw, counters)
+    assert int(want.n_samples) > 0 and want.dt_pad is not None
+    totals = counters.totals.tolist()
+    assert totals[0] == CONE_SHAPES[shape]["shape"][0]
+    assert sum(totals[3:]) == int(want.n_samples)
+    assert totals[2] >= sum(totals[3:])
+    if grid in ("dense", "cascades") and CONE_SHAPES[shape]["scale"] == 1.0:
+        # rays from outside cascade 2 cross the outer cascades' occupied cells
+        assert sum(v > 0 for v in totals[3:8]) >= 3, totals
+
+
+@pytest.mark.parametrize("grid", ("blob", "cascades", "slabs"))
+@pytest.mark.parametrize("shape", list(ARITH_SHAPES))
+def test_cascade_batch_kernels_equal_plain(card, shape, grid):
+    """aabb_scale 16 on the arithmetic lattice (per-point cascades, the coarse
+    pass at each segment's own mip): the kernels' batch equals the plain one."""
+    cfg = _cfg(**AABB16_ARITH)
+    assert training.march_mode(cfg) == training.CASCADE
+    pos, kw = _args(cfg, card, grid, ARITH_SHAPES[shape])
+    _, want = _launch_and_compare(card, cfg, pos, kw)
+    assert int(want.n_samples) > 0
+    if ARITH_SHAPES[shape]["shape"][6]:
+        assert int(want.seg_count_hi) > 0
+
+
+def _cascade_face_rays(cfg, card):
+    """Rays along +y and +z, from inside the scene box, at x one float32 ulp
+    under faces of every cascade's cells (x = 0.5 + (k / G - 0.5) 2^c), the
+    other coordinate through a few cell centres, then random rays: (o, d) on
+    the card and the number of face rays."""
+    g = cfg.grid_size
+    lo = 0.5 - 0.5 * cfg.aabb_scale + 0.05
+    o, d = [], []
+    for c in range(cfg.n_cascades):
+        w = float(1 << c)
+        for k in range(1, g, 9):
+            x0 = np.nextafter(np.float32(0.5 + (k / g - 0.5) * w), np.float32(-np.inf))
+            for cc in (20, 47, 90):
+                z0 = np.float32(0.5 + ((cc + 0.5) / g - 0.5) * w)
+                o += [(x0, lo, z0), (x0, z0, lo)]
+                d += [(0.0, 1.0, 0.0), (0.0, 0.0, 1.0)]
+    rng = np.random.default_rng(12)
+    src = rng.normal(size=(512, 3))
+    src = 0.5 + rng.uniform(0.3, 7.0, (512, 1)) * src / np.linalg.norm(src, axis=1, keepdims=True)
+    dst = rng.uniform(-1.0, 2.0, (512, 3))
+    dirs = (dst - src) / np.linalg.norm(dst - src, axis=1, keepdims=True)
+    o = np.concatenate([np.asarray(o, np.float32), src.astype(np.float32)])
+    d = np.concatenate([np.asarray(d, np.float32), dirs.astype(np.float32)])
+    return torch.from_numpy(o).to(card), torch.from_numpy(d).to(card), o.shape[0] - src.shape[0]
+
+
+@pytest.mark.parametrize("grid", ("slabs", "cascades"))
+def test_cone_march_on_cell_faces(card, grid):
+    """train_march alone on the cone lattice against the plain march on rays
+    one ulp under cell faces of every cascade: the same counts and
+    left-justified lattice ordinals."""
+    from ngp_tpu_torch.sampling.lattice import cone_anchors, lattice_dt
+
+    cfg = _cfg(**AABB16)
+    aabb = AABB.scene(cfg.aabb_scale)
+    occ, box = _grid(cfg, grid, card)
+    o, d, n_face = _cascade_face_rays(cfg, card)
+    tmin, tmax = aabb.ray_intersect(o, d)
+    tmin = torch.clamp(tmin, min=cfg.near_distance)
+    jitter = torch.linspace(0.0, 0.999, o.shape[0], device=card)
+    startt = tmin + lattice_dt(cfg, tmin) * jitter
+    hits = tmin < tmax
+    n_window = n_lattice_points(cfg)
+    k0 = torch.zeros_like(hits, dtype=torch.int64)
+    anchors = torch.stack(cone_anchors(cfg, startt), dim=-1).contiguous()
+    s_pad = 512
+    counters = training.MarchCounters(card)
+    counts, lat_pad, seg_counts = training.train_march(cfg, aabb, occ, o, d, startt, k0, hits, n_window, 0, s_pad,
+                                                       False, box, anchors, counters)
+    want_counts, masks = count_samples(cfg, aabb, occ, o, d, startt, return_masks=True, k0=k0, n_window=n_window)
+    masks = masks & hits[:, None]
+    want_counts = torch.where(hits, want_counts, 0)
+    want_lat = torch.sort(torch.where(masks, torch.arange(n_window, device=card)[None, :], n_window), dim=1).values
+    assert int(want_counts[:n_face].sum()) > 1000  # the face rays sample the cascades' slabs
+    assert seg_counts is None
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(lat_pad.to(torch.int64), want_lat[:, :s_pad])
+    totals = counters.totals.tolist()
+    assert sum(totals[3:]) == int(want_counts.sum()) and totals[0] == o.shape[0]
+    # samples in every cascade where every cascade holds occupied cells of its own
+    assert sum(v > 0 for v in totals[3:8]) >= (5 if grid == "cascades" else 2), totals
+
+
+def test_cone_batch_replayed_from_graph(card):
+    """A cone-lattice batch captured in a CUDA graph and replayed with new
+    salts and ray shift equals the plain path's eager batch for those draws;
+    each replay adds its march's counts."""
+    cfg = _cfg(**AABB16)
+    pos, kw = _args(cfg, card, "cascades", CONE_SHAPES["cell"])
+    salts, shift = pos[7].clone(), pos[9].clone()
+    captured = pos[:7] + (salts,) + pos[8:9] + (shift,) + pos[10:]
+    counters = training.MarchCounters(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        training.generate_training_batch(*captured, **kw, counters=counters)  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = training.generate_training_batch(*captured, **kw, counters=counters)
+    for k in range(3):
+        new_salts = torch.tensor([2000 + 31 * k, 0xCAFEF00D - k], dtype=torch.int64, device=card)
+        new_shift = torch.tensor(777 * k + 5, dtype=torch.int64, device=card)
+        salts.copy_(new_salts)
+        shift.copy_(new_shift)
+        before = counters.totals.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _plain(pos[:7] + (new_salts,) + pos[8:9] + (new_shift,) + pos[10:], kw)
+        _assert_same(got, want)
+        added = (counters.totals - before).tolist()
+        assert added[0] == CONE_SHAPES["cell"]["shape"][0] and sum(added[3:]) == int(want.n_samples)
+
+
+def test_cone_train_call_launches_and_counters(card, tmp_path):
+    """A large-scene (ngp-aabb16-oadd's sampler) training call captured and
+    replayed launches train_march and train_emit once a step each, never
+    takes the plain path, and reads the march's counters with its stats: the
+    samples by cascade add up to the steps' generated samples."""
+    from ngp_tpu_torch import Testbed
+    from ngp_tpu_torch.data.synthetic import write_synthetic_dataset
+    from ngp_tpu_torch.sampling.training import MARCH_COUNTERS
+    from ngp_tpu_torch.train.trainer import STAT_KEYS
+
+    gc.collect()  # see test_train_call_launches_and_batch
+    train_json, _ = write_synthetic_dataset(tmp_path, n_train=8, n_test=1, width=64, height=64, device="cuda")
+    tb = Testbed()
+    tb.load_model_config_dict({"samlper": AABB16, "network": {"encoding": {"per_level_scale": 1.66248}}})
+    tb.load_training_data(train_json)
+    plain0 = profiling.get("train.batch.plain")
+    for _ in range(4):
+        tb.train(16, 1 << 16)
+    assert profiling.get("train.batch.plain") == plain0
+    tr, loop = tb._trainer, tb._loop
+    n_rays, capacity, s_pad, n_window, s_short, n_long, n_seg_cap, _ = loop._last_shape
+    n = 8
+    table = torch.from_numpy(tr.draw_table(torch.Generator().manual_seed(9), n, 1234, n_rays)).to(card)
+    out = torch.zeros((n, len(STAT_KEYS)), dtype=torch.float64, device=card)
+    call = tr.train_call(n_rays, capacity, s_pad, n, n_window, s_short, n_long, n_seg_cap)
+    call(ds := loop.dataset, table, out)  # the capture, then the first replay
+    assert call.graph is not None
+    assert call.launches["train_march"] == n and call.launches["train_emit"] == n
+    tr.march_counters.stage()
+    torch.cuda.synchronize()
+    tr.march_counters.count()
+    before = {k: profiling.get(k) for k in MARCH_COUNTERS + ("launches.train_march",)}
+    call(ds, table, out)
+    tr.march_counters.stage()
+    torch.cuda.synchronize()
+    tr.march_counters.count()
+    delta = {k: profiling.get(k) - before[k] for k in before}
+    assert delta["launches.train_march"] == n
+    samples = sum(delta[f"train.batch.samples.mip{k}"] for k in range(training.MAX_CASCADES))
+    assert samples == int(out[:, STAT_KEYS.index("measured_batch_size_before_compaction")].sum())
+    assert delta["train.batch.rays"] == n * n_rays and delta["train.batch.lat_slots"] == n * n_rays * s_pad
+    assert delta["train.batch.points"] > samples > 0
+    assert profiling.get("train.batch.plain") == plain0
+    # a train() call reads the counters at its stats' sync
+    pts = profiling.get("train.batch.points")
+    tb.train(16, 1 << 16)
+    assert profiling.get("train.batch.points") > pts
+
+
+def test_a_shape_the_controllers_return_to_replays_at_once(card, tmp_path, monkeypatch):
+    """On the cone lattice's model, a call whose shape is not the last
+    call's but whose captured call is cached replays that graph at once (no
+    eager call, no new capture); a shape with no cached call runs eagerly."""
+    from ngp_tpu_torch import Testbed
+    from ngp_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    gc.collect()  # see test_train_call_launches_and_batch
+    train_json, _ = write_synthetic_dataset(tmp_path, n_train=8, n_test=1, width=64, height=64, device="cuda")
+    tb = Testbed()
+    tb.load_model_config_dict({"samlper": AABB16, "network": {"encoding": {"per_level_scale": 1.66248}}})
+    tb.load_training_data(train_json)
+    for _ in range(3):
+        tb.train(16, 1 << 16)
+    loop = tb._loop
+    a = loop._last_shape
+    b = a._replace(s_pad=a.s_pad // 2 if a.s_pad > 64 else 2 * a.s_pad, s_short=0)
+    shapes = [a, a, b, b, a, b]
+    monkeypatch.setattr(loop, "_choose_shape", lambda n, commit: shapes.pop(0) if commit else shapes[0])
+    seen = []
+    for _ in range(6):
+        captures = profiling.get("train.captures")
+        tb.train(16, 1 << 16)
+        seen.append((bool(tb.training_buffer.graphed), profiling.get("train.captures") - captures))
+    # a replays; b runs eagerly, then is captured; back at a and at b, each replays at once
+    assert seen[0][0] and seen[1:] == [(True, 0), (False, 0), (True, 1), (True, 0), (True, 0)], seen

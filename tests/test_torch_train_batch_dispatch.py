@@ -1,8 +1,9 @@
 """Which training batches the kernels of csrc/train_batch.cu generate: a card
-step on the packed march's lattice with the occupied box and a window of whole
-segments; everything else (the cone lattice, aabb_scale > 1, no occupied box,
-CPU tensors) takes the plain path. The kernels themselves run only on the
-card (tests/test_torch_train_batch_cuda.py)."""
+step with the occupied box and a window of whole segments that lat_pad's
+int16 ordinals hold, on every lattice (the packed march's, the cascades', the
+cone's); no occupied box, too long a lattice, too many cascades and CPU
+tensors take the plain path. The kernels themselves run only on the card
+(tests/test_torch_train_batch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -32,8 +33,14 @@ def _sampler(**kw):
         ({}, BOX, 1152, CUDA, True),  # base.json at the training cells' window
         ({}, BOX, 0, CUDA, True),  # the whole lattice
         ({"grid_size": 32, "maximum_marching_steps": 256}, BOX, 0, CUDA, True),  # the tests' TINY sampler
-        ({"cone_angle_constant": 0.004}, BOX, 0, CUDA, False),  # the cone lattice
-        ({"aabb_scale": 2}, BOX, 0, CUDA, False),  # a march over cascades
+        ({"cone_angle_constant": 0.004}, BOX, 0, CUDA, True),  # the cone lattice
+        ({"aabb_scale": 2}, BOX, 0, CUDA, True),  # a march over cascades
+        ({"aabb_scale": 16, "cone_angle_constant": 1 / 256}, BOX, 1664, CUDA, True),  # ngp-aabb16-oadd
+        ({"aabb_scale": 16, "cone_angle_constant": 1 / 256}, BOX, 512, CUDA, True),  # the cone ignores the window
+        ({"aabb_scale": 16}, BOX, 2048, CUDA, True),  # cascades on the arithmetic lattice
+        ({"aabb_scale": 32}, BOX, 0, CUDA, False),  # a 32,896-point lattice: past lat_pad's int16
+        ({"aabb_scale": 256, "cone_angle_constant": 1 / 256}, BOX, 0, CUDA, False),  # 9 cascades
+        ({"aabb_scale": 16, "cone_angle_constant": 1 / 256}, None, 0, CUDA, False),  # the cone without the box
         ({}, None, 0, CUDA, False),  # no occupied box: no window start
         ({}, BOX, 1100, CUDA, False),  # a window of part segments
         ({}, BOX, 1152, torch.device("cpu"), False),  # CPU tensors

@@ -37,6 +37,7 @@ from ngp_tpu_torch.train.trainer import Trainer as TTrainer
 from ngp_tpu_torch.train.trainer import TrainingLoop as TLoop
 from ngp_tpu_torch.utils.aabb import AABB as TAABB
 from ngp_tpu_torch.utils.camera import opengl_to_opencv
+from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.config import NGPConfig as TCfg
 
 torch.set_num_threads(2)
@@ -326,6 +327,58 @@ def test_oom_during_a_capture_demotes_to_per_step(tmp_path, monkeypatch):
     assert demoted.training_buffer.loss == per_step.training_buffer.loss
     for x, y in zip(demoted._trainer.model.param_list(), per_step._trainer.model.param_list(), strict=True):
         assert torch.equal(x.detach(), y.detach())
+
+
+def _new_counts(tb, n_calls: int, prefix: str) -> list:
+    """The counters under `prefix` that each of n_calls train(8, 2**12) calls added."""
+    out = []
+    for _ in range(n_calls):
+        before = profiling.counters()
+        tb.train(8, 1 << 12)
+        after = profiling.counters()
+        out.append(sorted(k for k in after if k.startswith(prefix) and after[k] != before.get(k, 0)))
+    return out
+
+
+def test_a_shape_whose_call_is_cached_runs_through_it(tmp_path, monkeypatch):
+    """A call whose shape differs from the last call's runs eagerly (its
+    cause named) unless the trainer holds a cached call of that shape: then
+    it runs through that call, a replay on the card (off the card the call's
+    steps, counted as no_graph), with no wait for the shape to repeat."""
+    train_json, _ = write_synthetic_dataset(tmp_path, n_train=4, n_test=1, width=24, height=24, device="cpu")
+    tb = _tiny_loop(train_json)
+    tb.train(8, 1 << 12)
+    loop, tr = tb._loop, tb._trainer
+    a = loop._last_shape
+    b = a._replace(s_pad=2 * a.s_pad)
+    shapes = [a, b, a, b, b]
+    monkeypatch.setattr(loop, "_choose_shape", lambda n, commit: shapes.pop(0) if commit else shapes[0])
+    causes = _new_counts(tb, 5, "train.eager.")
+    assert causes == [["train.eager.no_graph"], ["train.eager.shape.s_pad"], ["train.eager.no_graph"],
+                      ["train.eager.shape.s_pad"], ["train.eager.no_graph"]]
+    assert tr.has_call(a[:7], 8) and tr.has_call(b[:7], 8) and not tr.has_call(a[:7], 4)
+    tr.drop_graphs()
+    assert not tr.has_call(a[:7], 8)
+
+
+@pytest.mark.parametrize("cone, probes", [(0.0, 1), (1 / 256, 0)])
+def test_the_periodic_segment_probe_skips_the_cone_lattice(tmp_path, monkeypatch, cone, probes):
+    """Every 16th call with the two-level march off probes the grid for its
+    segment estimate on the arithmetic lattice; the cone lattice has no
+    coarse pass, so no periodic probe re-picks its shape."""
+    train_json, _ = write_synthetic_dataset(tmp_path, n_train=4, n_test=1, width=24, height=24, device="cpu")
+    tb = Testbed(device="cpu")
+    tb.load_model_config_dict({**TINY, "samlper": {**TINY["samlper"], "cone_angle_constant": cone}})
+    tb._trainer.sample_capacity = 1 << 13
+    tb.load_training_data(train_json)
+    tb.train(8, 1 << 12)
+    loop, tr = tb._loop, tb._trainer
+    seen = []
+    probe = tr.probe_batch
+    monkeypatch.setattr(tr, "probe_batch", lambda *a, **kw: seen.append(1) or probe(*a, **kw))
+    tb.training_buffer.i_step, loop.n_seg_cap, loop._probe_next = 16 * 8, 0, False
+    tb.train(8, 1 << 12)
+    assert len(seen) == probes
 
 
 def test_controllers_survive_snapshots_both_ways(tmp_path):
