@@ -289,6 +289,7 @@ PROFILE_KERNELS = {
     "hash_encode_bwd": (("hash_bwd_stochastic_kernel", "hash_bwd_exact_kernel"),) * 2,
     "train_march": (("train_march_kernel",), ("train_march_kernel",)),
     "train_emit": (("train_emit_kernel",), ("train_emit_kernel",)),
+    "render_march": (("render_march_kernel",), ("render_march_kernel",)),
 }
 # (memory bytes/s, bf16 dense tensor FLOP/s, fp32 FLOP/s outside the tensor
 # cores) by card, from NVIDIA's data sheets
@@ -1932,6 +1933,83 @@ def phase_skip(tb, frames: list) -> dict:
 
 
 @timed
+def phase_render_march(tb, bw, fp32_flops) -> dict:
+    """The spp-1 renderer's march kernel (render_march) in the 800x800 Shade
+    spp-1 view of the last ring pose: the frame through the kernel against
+    the plain path's (equal, with the same samples and points), its launches
+    a frame and each launch's rays, rows and device ms (the profiler's)
+    against the bytes the launches must move: a listed ray's id (8 B) and,
+    after the first launch, its taken and round (8 B) and, where the round
+    is not -1, its transmittance (4 B); 32 B more (o, d, t0, k0) for a ray
+    that goes on to the coarse pass; 148 B more for a marched ray (startt,
+    its state written, its id in the live list, its mask row); 32 B a sample
+    row; and once a frame the occupancy's cascade 0 and the pooled grid.
+    Beside them the spp_march span's device ms in both frames and a plain
+    round's."""
+    from ngp_tpu_torch.render import march as rm
+    from ngp_tpu_torch.render import renderer as rd
+
+    w, h = FRAME
+    tb.set_nerf_camera_matrix(ring_pose(POSES[-1]))
+    r, scfg = tb._renderer, tb.config.sampler
+    cam = torch.as_tensor(tb.rendering_buffer.camera_matrix, dtype=torch.float32, device="cuda")
+    o, d = rd.camera_rays(cam, w, h, (float(h), float(h)), (0.5, 0.5), (0.5, 0.5))
+    take, real = rd.render_march_takes, rm.render_march
+    launches = []
+
+    def frame(kernel: bool):
+        rd.render_march_takes = take if kernel else (lambda cfg, device: False)
+        try:
+            out = r.render_rays(tb.grid.occupancy, cam, o, d, 0, "Shade", occ_aabb=tb.grid.occ_aabb)
+        finally:
+            rd.render_march_takes = take
+        return out, r.last_frame_samples, r.last_frame_points
+
+    def spy(cfg, occupancy, pooled, a, n_in, first, thresh):
+        # the rays the kernel reads beyond their state: the rays whose last
+        # round left them going, read before the launch rewrites the state
+        if first:
+            n_last = n_go = n_in
+        else:
+            listed = a.list_in[:n_in]
+            last = a.rnd[listed] >= 0
+            n_last, n_go = int(last.sum()), int((last & (a.trans[listed] >= thresh)).sum())
+        real(cfg, occupancy, pooled, a, n_in, first, thresh)
+        launches.append((n_in, first, n_last, n_go, a.counts))
+
+    rm.render_march = spy
+    try:
+        got = frame(True)
+    finally:
+        rm.render_march = real
+    want = frame(False)
+    equal = bool(torch.equal(got[0], want[0])) and got[1:] == want[1:]
+    rows = [(n_in, *(int(v) for v in c.tolist()[:2])) for n_in, _, _, _, c in launches]  # (listed, live, sample rows)
+    g = scfg.grid_size
+    state = sum(8 * n_in + (0 if first else 8 * n_in + 4 * n_last) + 32 * n_go
+                for n_in, first, n_last, n_go, _ in launches)
+    n_bytes = state + sum(148 * live + 32 * m for _, live, m in rows) + g**3 + scfg.n_cascades * (g // 8) ** 3
+    ms = kernel_launch_ms(lambda: frame(True), "render_march_kernel")
+    spans = {}
+    for label, kernel in (("kernel", True), ("plain", False)):
+        _, by = device_profile(lambda: frame(kernel), labels=("spp_march",))
+        spans[label] = by["spp_march"]["kernel_ms"]
+    n_rounds = len(rows) - 1  # the last launch finds every ray ended
+    out = {"equal": equal, "samples": got[1], "points": got[2], "launches_per_frame": len(rows), "rounds": n_rounds,
+           "launches": [{"listed": a, "live": b, "rows": c, "ms": t} for (a, b, c), t in zip(rows, ms)],
+           "ms": float(np.median(ms)), "frame_kernel_ms": float(sum(ms)), **bound(n_bytes / len(rows), 0, bw, fp32_flops),
+           "frame_bound_ms": n_bytes / bw * 1e3, "spp_march_ms": spans, "plain_round_ms": spans["plain"] / max(n_rounds, 1)}
+    print(f"render_march {w}x{h} Shade spp 1: kernel == plain: {equal}; {len(rows)} launches ({n_rounds} rounds), "
+          f"{sum(ms):.3f} ms of kernel a frame against a {out['frame_bound_ms']:.4f} ms bound ({n_bytes / 1e6:.1f} MB); "
+          f"spp_march {spans['kernel']:.2f} ms a frame through the kernel, {spans['plain']:.2f} ms plain "
+          f"({out['plain_round_ms']:.2f} a round); launches (listed, live, rows, ms) "
+          f"{[(a, b, c, round(t, 4)) for (a, b, c), t in zip(rows, ms)]} ({card_line()})")
+    if not equal:
+        raise SystemExit("the renderer's march kernel disagrees with the plain march")
+    return out
+
+
+@timed
 def phase_march_reference(Testbed, NGPModel) -> dict:
     """The march alone, card vs CPU: a transparent model (the density head's
     output column <= 0 under a ReLU density activation, so sigma = 0 and no
@@ -2629,6 +2707,7 @@ def main():
     # the empty-space skipping: the spp-1 frame against the full march, the
     # march card vs CPU on the same rays
     skip = phase_skip(tb, frames)
+    render_march = phase_render_march(tb, bw, fp32_flops)
     del tb
     reference = phase_reference(Testbed, NGPModel)
     protocol["reference"] = phase_protocol_reference(Testbed, NGPModel)
@@ -2749,7 +2828,14 @@ def main():
         e["cone"] = train_batch["cone"][kernel]
         e["launches_by_path"] = by_path(kernel)
         batch_kernels.append(e)
-    kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels]
+    rmk = kernel_entry("render_march", "ngp_tpu_torch/csrc/render_march.cu",
+                       "none: XLA code of ngp_tpu/render/renderer.py (_coarse_pass) and ngp_tpu/sampling/lattice.py",
+                       serve_launches["render_march"], 0.0 if render_march["equal"] else float("inf"),
+                       {**render_march, "plain_ms": render_march["plain_round_ms"], "library_ms": None})
+    rmk["per_frame"] = {k: render_march[k] for k in ("launches_per_frame", "rounds", "frame_kernel_ms", "frame_bound_ms",
+                                                     "spp_march_ms")}
+    rmk["launches_by_path"] = by_path("render_march")
+    kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels, rmk]
     for k in kernels:
         k["ms_in_frame"] = profile["in_path"][k["name"]]["ms_per_launch"]
         k["ms_in_step"] = train["profile"]["in_path"][k["name"]]["ms_per_launch"]

@@ -11,7 +11,9 @@
 // PyTorch operations a step over (R, W) and (R, W, 3) intermediates. These
 // two kernels compute the same numbers bit for bit (sampling/training.py
 // keeps the plain version, which runs on the CPU and for configurations the
-// kernels do not take).
+// kernels do not take). The per-point arithmetic (a point's t, position, box
+// test and occupancy, the coarse pass's segment test) is lattice.cuh's,
+// shared with the spp-1 renderer's march (render_march.cu).
 //
 // Three lattices, one instantiation of train_march each (MODE):
 //   PACKED  (constant dt, aabb_scale 1, 3.5 dt G <= 1: every base.json
@@ -93,12 +95,13 @@
 
 #include <cstdint>
 
+#include "lattice.cuh"
+
 namespace {
 
-constexpr int SEG = 8;                // lattice points of one segment (one packed word's group)
+using namespace lattice;
+
 constexpr int WARPS = 4;              // rays (warps) a block of train_march
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int PACKED = 0, CASCADE = 1, CONE = 2;
 constexpr int MAX_CASCADES = 8;
 // the cone march's margin around the occupied box, in world units: far beyond
 // the rounding of a position or of a cell's bounds (about 1e-6 at |p| < 10)
@@ -125,138 +128,6 @@ struct March {
   float dt, near_thresh, cut_thresh, near_band, cone_c, max_dt, log1pc;
   float lo[3], hi[3];
 };
-
-// float32(a * b + c) with the product unrounded: utils/fma.py's fma (the
-// product of two floats is exact in double; one double add, one rounding)
-__device__ __forceinline__ float fma_once(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
-__device__ __forceinline__ int cell_of(float x, float scale, int res) {
-  const float f = floorf(__fmul_rn(x, scale));
-  const long long c = (long long)f;
-  return (int)(c < 0 ? 0 : (c > res - 1 ? res - 1 : c));
-}
-
-// grid/occupancy._frexp_exponent: frexpf's exponent from the float's bits
-__device__ __forceinline__ int frexp_exponent(float x) { return ((__float_as_int(x) >> 23) & 0xFF) - 126; }
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-// grid/occupancy.mip_from_pos from the point's max |p - 0.5|
-__device__ __forceinline__ int mip_from_maxval(float maxval, int nc) {
-  return maxval == 0.0f ? min(1, nc - 1) : clampi(frexp_exponent(maxval) + 1, 0, nc - 1);
-}
-
-__device__ __forceinline__ float max_offset(const float p[3]) {
-  float m = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) m = fmaxf(m, fabsf(__fsub_rn(p[k], 0.5f)));
-  return m;
-}
-
-// lattice.march_mip of a constant-dt march: the static mip, or per point
-// (aabb_scale > 1) mip_from_pos floored at it
-__device__ __forceinline__ int march_mip(const March& a, const float p[3]) {
-  return a.mip_by_pos ? max(mip_from_maxval(max_offset(p), a.n_cascades), a.mip_lo) : a.mip_lo;
-}
-
-// grid/occupancy.occupancy_lookup (cell) or pooled_lookup at one mip:
-// (pos - 0.5) * 2^-mip + 0.5, each operation rounded, on a grid of `res`
-__device__ __forceinline__ long long grid_index(const float p[3], int mip, int res) {
-  const float scale = __int_as_float((127 - mip) << 23);
-  int c[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) c[k] = cell_of(__fadd_rn(__fmul_rn(__fsub_rn(p[k], 0.5f), scale), 0.5f), (float)res, res);
-  const long long s = res;
-  return ((mip * s + c[0]) * s + c[1]) * s + c[2];
-}
-
-__device__ __forceinline__ bool pooled_at(const March& a, const float p[3], int mip) {
-  return a.pooled[grid_index(p, mip, a.pooled_res)] != 0;
-}
-
-// sampling/lattice.coarse_segment_mask for window segment s
-template <int MODE>
-__device__ __forceinline__ bool coarse_keep(const March& a, const float o[3], const float d[3], float st, float k0f,
-                                            int s) {
-  const float ai = __fadd_rn(__fadd_rn(k0f, (float)(SEG * s)), 4.0f);
-  const float tm = fma_once(ai, a.dt, st);
-  float p[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) p[k] = fma_once(tm, d[k], o[k]);
-  const float maxval = max_offset(p);
-  // near the mip's edge the next mip's lookup too (with one cascade mip_hi
-  // is mip_lo and the or changes nothing)
-  if constexpr (MODE == PACKED) {
-    bool occ = pooled_at(a, p, a.mip_lo);
-    if (maxval >= a.near_thresh) occ = occ || pooled_at(a, p, a.mip_hi);
-    return occ && maxval <= a.cut_thresh;
-  } else {
-    // mip m's range ends at maxval = 2^(m - 1): its float bits, less 16 dt
-    const int mip = march_mip(a, p);
-    bool occ = pooled_at(a, p, mip);
-    if (maxval >= __fsub_rn(__int_as_float((126 + mip) << 23), a.near_band))
-      occ = occ || pooled_at(a, p, min(mip + 1, a.n_cascades - 1));
-    return occ && maxval <= a.cut_thresh;
-  }
-}
-
-// lattice_t of ordinal i on the cone lattice from the ray's start st and
-// anchors (iA, tA, iC, tC), dt the least step, dt_max the most
-__device__ __forceinline__ float cone_t(const float* anc, float st, float i, float dt, float log1pc, float dt_max) {
-  if (i <= anc[0]) return __fadd_rn(st, __fmul_rn(i, dt));
-  if (i <= anc[2]) return __fmul_rn(anc[1], expf(__fmul_rn(__fsub_rn(i, anc[0]), log1pc)));
-  return __fadd_rn(anc[3], __fmul_rn(__fsub_rn(i, anc[2]), dt_max));
-}
-
-// grid/occupancy.mip_from_dt of the point at t (dt = lattice_dt(t))
-__device__ __forceinline__ int cone_mip(const March& a, const float p[3], float t) {
-  const int mip = mip_from_maxval(max_offset(p), a.n_cascades);
-  const float dt = fminf(fmaxf(__fmul_rn(a.cone_c, t), a.dt), a.max_dt);
-  const float dd = __fmul_rn(__fmul_rn(dt, 2.0f), (float)a.grid);
-  return dd < 1.0f ? mip : max(mip, clampi(frexp_exponent(dd), 0, a.n_cascades - 1));
-}
-
-// The lane's point of lattice ordinal k (k0 + 8 seg + r on the constant-dt
-// lattices, lanes 8g .. 8g + 7 holding one segment): whether it is in the box
-// (`inside`), its cascade (`mip`), and whether it is an occupied point in the
-// box. Every lane of the warp calls it.
-template <int MODE>
-__device__ __forceinline__ bool fine_point(const March& a, const float o[3], const float d[3], float st,
-                                           const float anc[4], long long k, bool& inside, int& mip) {
-  float t;
-  if constexpr (MODE == CONE) t = cone_t(anc, st, __ll2float_rn(k), a.dt, a.log1pc, a.max_dt);
-  else t = fma_once(__ll2float_rn(k), a.dt, st);
-  float p[3];
-  inside = true;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    p[j] = fma_once(t, d[j], o[j]);
-    inside = inside && p[j] >= a.lo[j] && p[j] <= a.hi[j];
-  }
-  const long long G = a.grid;
-  if constexpr (MODE == PACKED) {
-    const int lane = threadIdx.x & 31;
-    const int base = lane & ~(SEG - 1);
-    const float g = (float)a.grid;
-    int cell[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      // the segment's midpoint: the mean of its points 3 and 4
-      const float p3 = __shfl_sync(FULL, p[j], base + 3);
-      const float p4 = __shfl_sync(FULL, p[j], base + 4);
-      const int cm = cell_of(__fmul_rn(0.5f, __fadd_rn(p3, p4)), g, a.grid);
-      const int cp = cell_of(p[j], g, a.grid);
-      cell[j] = cm + max(-1, min(1, cp - cm));
-    }
-    mip = a.mip_lo;
-    return inside && a.occ[(cell[0] * G + cell[1]) * G + cell[2]] != 0;
-  } else {
-    mip = MODE == CONE ? cone_mip(a, p, t) : march_mip(a, p);
-    return inside && a.occ[grid_index(p, mip, a.grid)] != 0;
-  }
-}
 
 // The first ordinal past t on the cone lattice, less one: the inverse of
 // cone_t, floored (a float estimate; the callers widen it by an ordinal)
@@ -346,7 +217,8 @@ __global__ void __launch_bounds__(WARPS * 32) train_march_kernel(March a) {
       // there): outside the box, the ray takes no sample
       bool inside0;
       int mip;
-      fine_point<MODE>(a, o, d, st, anc, k0, inside0, mip);
+      float p[3];
+      fine_point<MODE>(a, o, d, st, anc, k0, inside0, mip, p);
       inside0 = __shfl_sync(FULL, inside0, 0);
       if constexpr (MODE == CONE) {
         long long k_lo = 0, k_hi = 0;
@@ -355,7 +227,7 @@ __global__ void __launch_bounds__(WARPS * 32) train_march_kernel(March a) {
           const long long k = j0 + lane;
           const bool live = k < k_hi;
           bool inside;
-          const bool sample = fine_point<MODE>(a, o, d, st, anc, k, inside, mip) && live;
+          const bool sample = fine_point<MODE>(a, o, d, st, anc, k, inside, mip, p) && live;
           const unsigned m = __ballot_sync(FULL, sample);
           const int ord = taken + __popc(m & below);
           if (sample && ord < a.max_steps) {
@@ -375,7 +247,7 @@ __global__ void __launch_bounds__(WARPS * 32) train_march_kernel(March a) {
           const bool live = slot < n_real;
           const int seg = live ? (a.seg_cap > 0 ? (int)seg_list[slot] : slot) : 0;
           bool inside;
-          const bool sample = fine_point<MODE>(a, o, d, st, anc, k0 + SEG * seg + r, inside, mip) && live;
+          const bool sample = fine_point<MODE>(a, o, d, st, anc, k0 + SEG * seg + r, inside, mip, p) && live;
           const unsigned m = __ballot_sync(FULL, sample);
           const int ord = taken + __popc(m & below);
           if (sample && ord < a.max_steps) {
@@ -393,7 +265,7 @@ __global__ void __launch_bounds__(WARPS * 32) train_march_kernel(March a) {
         const int n_dup = a.seg_cap > 0 ? a.seg_cap - n_real : 0;
         if (n_dup > 0) {
           bool inside;
-          const bool sample = fine_point<MODE>(a, o, d, st, anc, k0 + SEG * a.n_seg + r, inside, mip) && lane < SEG;
+          const bool sample = fine_point<MODE>(a, o, d, st, anc, k0 + SEG * a.n_seg + r, inside, mip, p) && lane < SEG;
           const unsigned b = __ballot_sync(FULL, sample);
           points += SEG;
           if (b != 0u) {

@@ -1,0 +1,297 @@
+"""The spp-1 renderer's march on the PACKED lattice as one kernel launch a round.
+
+Counterpart: none in ngp_tpu as a kernel; ngp_tpu's spp-1 tile marches as
+XLA code (ngp_tpu/render/renderer.py's _coarse_pass and the packed
+count_samples_segments). On the card, where render_march_takes holds,
+Renderer._render_pass hands its march to FrameMarch: csrc/render_march.cu's
+render_march launched once a round, each launch taking the live rays of the
+last one, dropping those that ended (the composite's transmittance under
+transmittance_threshold, the step cap, the box exit, no further round with a
+kept coarse segment), marching every other one to its next round that keeps
+a segment, and writing the round's samples as flat rows, the dense (L, 128)
+mask and the compacted live list. The host reads one counter triple a round
+(live rays, rows, the frame's window in segments), which sizes the
+network's evaluation. The samples are those of the renderer's plain march
+(_kept_segments, segment_plan, march_round) to the bit; the live list's
+order differs, and nothing after the march depends on it.
+
+render_march_plain computes what one launch computes, in PyTorch, on any
+device, from coarse_segment_mask and segment_points: the kernel's card tests
+hold the kernel against it, and the CPU tests run FrameMarch on it.
+"""
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ngp_tpu_torch.grid.occupancy import packed_neighborhood, pooled_occupancy, static_dt_mip
+from ngp_tpu_torch.ops import kernels
+from ngp_tpu_torch.sampling.lattice import (
+    CHUNK,
+    SEG,
+    coarse_segment_mask,
+    n_lattice_points,
+    packed_march_supported,
+    segment_points,
+)
+from ngp_tpu_torch.utils import profiling
+from ngp_tpu_torch.utils.aabb import AABB
+from ngp_tpu_torch.utils.config import SamplerConfig
+
+RANGE_SEGS = CHUNK // SEG  # segments of a round
+INT32_MAX = (1 << 31) - 1
+
+
+def render_march_takes(cfg: SamplerConfig, device) -> bool:
+    """Whether a spp-1 pass marches through render_march: tensors on the
+    card, the PACKED lattice (packed_march_supported: constant dt, so the
+    renderer builds a segment plan, aabb_scale 1 and one packed word a
+    segment), and ordinals, rounds and sample counts within the kernel's
+    int32 indices."""
+    return (torch.device(device).type == "cuda" and packed_march_supported(cfg)
+            and n_lattice_points(cfg) + CHUNK <= INT32_MAX and cfg.maximum_marching_steps <= INT32_MAX)
+
+
+class Launch(NamedTuple):
+    """One launch's tensors. The frame's rays by ray id: o, d (N, 3), t0 and
+    startt (N,) the unjittered and jittered march starts, k0 (N,) int64 window
+    starts, trans (N,) the transmittance after each ray's last composited
+    round, taken and rnd (N,) int32, the state the launch reads (after the
+    first) and writes. n_seg () int64, the frame's window in segments. The
+    launch reads list_in[:n_in] and writes list_out, mask (n_in, 128) bool,
+    flat (n_in * 128,) int64, pos and dirs (n_in * 128, 3) float32 from row 0
+    on, and counts (3,) int64: live rays, rows, n_seg; counts must be zero."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    t0: torch.Tensor
+    startt: torch.Tensor
+    k0: torch.Tensor
+    trans: torch.Tensor
+    taken: torch.Tensor
+    rnd: torch.Tensor
+    n_seg: torch.Tensor
+    list_in: torch.Tensor
+    list_out: torch.Tensor
+    mask: torch.Tensor
+    flat: torch.Tensor
+    pos: torch.Tensor
+    dirs: torch.Tensor
+    counts: torch.Tensor
+
+
+def _library():
+    lib = kernels.library("render_march")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.render_march.argtypes = [p] * 18 + [i] * 9 + [f] * 10 + [p]
+    lib.render_march.restype = ctypes.c_int
+    return lib
+
+
+def _f32(v) -> float:
+    """A python float as the float32 value torch takes it as."""
+    return float(np.float32(v))
+
+
+def render_march(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, first: bool, thresh: float):
+    """The kernel (csrc/render_march.cu) on a's tensors, on the card: one
+    round of the rays a.list_in[:n_in]; `first` for the frame's first launch.
+    `pooled` is pooled_occupancy(cfg, occupancy)."""
+    dev = a.o.device
+    N, R = a.o.shape[0], a.list_in.shape[0]
+    if dev.type != "cuda" or not render_march_takes(cfg, dev):
+        raise ValueError("render_march takes CUDA tensors on the PACKED lattice")
+    g = cfg.grid_size
+    for name, t, dtype, shape in (
+        ("occupancy", occupancy, torch.bool, (cfg.n_cascades, g, g, g)), ("pooled", pooled, torch.bool, None),
+        ("o", a.o, torch.float32, (N, 3)), ("d", a.d, torch.float32, (N, 3)), ("t0", a.t0, torch.float32, (N,)),
+        ("startt", a.startt, torch.float32, (N,)), ("k0", a.k0, torch.int64, (N,)),
+        ("trans", a.trans, torch.float32, (N,)), ("taken", a.taken, torch.int32, (N,)),
+        ("rnd", a.rnd, torch.int32, (N,)), ("n_seg", a.n_seg, torch.int64, ()), ("list_in", a.list_in, torch.int64, None),
+        ("list_out", a.list_out, torch.int64, (R,)), ("mask", a.mask, torch.bool, (R, CHUNK)),
+        ("flat", a.flat, torch.int64, (R * CHUNK,)), ("pos", a.pos, torch.float32, (R * CHUNK, 3)),
+        ("dirs", a.dirs, torch.float32, (R * CHUNK, 3)), ("counts", a.counts, torch.int64, (3,)),
+    ):
+        if t.dtype != dtype or (shape is not None and tuple(t.shape) != shape) or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous {dtype} of shape {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 0 < n_in <= R:
+        raise ValueError(f"n_in {n_in} outside the list's 1..{R}")
+    # the coarse pass's constants as coarse_segment_mask's float32 tensors
+    # see them (train_march's): the static mip and the next, the mip edge's
+    # band and the scene cube's cut
+    dt = float(cfg.min_cone_stepsize)
+    nc = cfg.n_cascades
+    mip_lo = max(static_dt_mip(dt, g, nc), 0)
+    bound = np.array([(126 + mip_lo) << 23], np.int32).view(np.float32)[0]
+    near = np.float32(bound - np.float32(16.0 * dt))
+    cut = np.float32(0.5 * float(cfg.aabb_scale) + 8.0 * dt)
+    aabb = AABB.scene(cfg.aabb_scale)
+    n_lat = n_lattice_points(cfg)
+
+    def launch():
+        err = _library().render_march(
+            occupancy.data_ptr(), pooled.data_ptr(), a.o.data_ptr(), a.d.data_ptr(), a.t0.data_ptr(),
+            a.startt.data_ptr(), a.k0.data_ptr(), a.trans.data_ptr(), a.taken.data_ptr(), a.rnd.data_ptr(),
+            a.n_seg.data_ptr(), a.list_in.data_ptr(), a.list_out.data_ptr(), a.mask.data_ptr(), a.flat.data_ptr(),
+            a.pos.data_ptr(), a.dirs.data_ptr(), a.counts.data_ptr(), n_in, int(first), n_lat // CHUNK, n_lat,
+            cfg.maximum_marching_steps, g, pooled.shape[-1], mip_lo, min(mip_lo + 1, nc - 1), _f32(dt), float(near),
+            float(cut), _f32(thresh), *[_f32(v) for v in aabb.lo], *[_f32(v) for v in aabb.hi],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"render_march launch failed: CUDA error {err}")
+
+    RenderMarchOp.apply(a.counts, launch)
+    profiling.count("launches.render_march")
+
+
+class RenderMarchOp(torch.autograd.Function):
+    """The ctypes launch as a recorded torch op. torch.profiler gives a
+    kernel's device time to the op that was open when the kernel was
+    launched, and a span's record_function range is no such op, so a bare
+    ctypes launch would fall outside the spp_march span. The hash and MLP
+    kernels launch inside their autograd Functions and count under their
+    spans; this gives the march kernel the same. Nothing differentiates
+    through it: it returns `out` as it is."""
+
+    @staticmethod
+    def forward(ctx, out, launch):
+        launch()
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+
+def render_march_plain(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, first: bool, thresh: float):
+    """render_march in PyTorch, on any device: the same rays, state, rows and
+    counts, the live list in list order (the kernel's is in block order).
+    Reads n_seg to the host. It exists for the tests, which hold the kernel
+    against it and run FrameMarch on the CPU through it: no path of the
+    renderer calls it."""
+    dev = a.o.device
+    n_lat = n_lattice_points(cfg)
+    n_rounds = n_lat // CHUNK
+    n_seg = int(a.n_seg)
+    rays = a.list_in[:n_in]
+    k0 = a.k0[rays]
+    w0 = k0 - k0 % SEG
+    s0 = w0 // SEG
+    if first:
+        taken = torch.zeros_like(rays)
+        go = torch.ones_like(rays, dtype=torch.bool)
+        start = torch.zeros_like(rays)
+    else:
+        last, taken = a.rnd[rays].to(torch.int64), a.taken[rays].to(torch.int64)
+        go, start = (last >= 0) & (a.trans[rays] >= thresh), last + 1
+    # the first round from `start` that keeps a segment of the window
+    keep = coarse_segment_mask(cfg, pooled, a.o[rays], a.d[rays], a.t0[rays], n_seg, w0)
+    seg_rnd = (s0[:, None] + torch.arange(n_seg, device=dev)[None, :]) // RANGE_SEGS
+    ok = keep & (seg_rnd >= start[:, None]) & (seg_rnd < n_rounds)
+    rnd = torch.where(ok, seg_rnd, n_rounds).amin(dim=1)
+    sel = torch.nonzero(go & (rnd < n_rounds)).squeeze(1)
+    L = sel.numel()
+    ray, rnd, taken, w0 = rays[sel], rnd[sel], taken[sel], w0[sel]
+    # that round's points: the kept segments' valid ordinals
+    j = (RANGE_SEGS * rnd - w0 // SEG)[:, None] + torch.arange(RANGE_SEGS, device=dev)[None, :]
+    kept = (j >= 0) & (j < n_seg) & keep[sel[:, None], j.clamp(0, n_seg - 1)]
+    idx = CHUNK * rnd[:, None] + torch.arange(CHUNK, device=dev)[None, :]
+    valid = kept.repeat_interleave(SEG, dim=1) & (idx < n_lat)
+    inside, occ, _, pos = segment_points(cfg, AABB.scene(cfg.aabb_scale), occupancy, a.o[ray], a.d[ray], a.startt[ray],
+                                         idx, packed_neighborhood(cfg, occupancy))
+    mask = valid & inside & occ
+    m = mask.to(torch.int64)
+    mask = mask & (taken[:, None] + torch.cumsum(m, dim=1) - m < cfg.maximum_marching_steps)
+    exited = (valid & ~inside).any(dim=1)
+    taken = taken + mask.sum(dim=1)
+    a.taken[ray] = taken.to(torch.int32)
+    a.rnd[ray] = torch.where(exited | (taken >= cfg.maximum_marching_steps), -1, rnd).to(torch.int32)
+    rows, cols = torch.nonzero(mask, as_tuple=True)
+    M = rows.numel()
+    a.list_out[:L] = ray
+    a.mask[:L] = mask
+    a.flat[:M] = rows * CHUNK + cols
+    a.pos[:M] = pos[rows, cols]
+    a.dirs[:M] = (a.d[ray[rows]] + 1.0) * 0.5
+    a.counts.copy_(torch.tensor([L, M, n_seg], dtype=torch.int64))
+
+
+class Round(NamedTuple):
+    """A marched round: the live rays' ids (L,), their (L, 128) sample mask,
+    and its rows: flat (M,) indices row * 128 + column, positions and warped
+    directions (M, 3)."""
+
+    ids: torch.Tensor
+    mask: torch.Tensor
+    flat: torch.Tensor
+    pos: torch.Tensor
+    dirs: torch.Tensor
+
+
+class FrameMarch:
+    """The march of one spp-1 pass on the PACKED lattice, one launch a round.
+
+    `ids` (R,) are the rays to march (the hit rays, or a rank's share of
+    them), n_seg () the frame's window in segments on the device (the
+    plain path's n_seg), n_hit the frame's hit rays (the coarse pass's rows in
+    the plain path's count of tested points). `trans` (N,) is the pass's
+    transmittance, which the composite updates in place between rounds.
+    `tested` and `sampled` count, as the plain path counts them, the lattice
+    points the march tested (n_hit * n_seg coarse midpoints, 128 a marched
+    ray a round) and the rows it wrote."""
+
+    def __init__(self, cfg: SamplerConfig, occupancy, o, d, t0, startt, k0, ids, n_seg, trans, n_hit: int, thresh: float):
+        dev = o.device
+        N, R = o.shape[0], ids.numel()
+        self.cfg, self.occupancy, self.thresh, self.n_hit = cfg, occupancy, thresh, n_hit
+        self.pooled = pooled_occupancy(cfg, occupancy)
+        self.n_rounds = n_lattice_points(cfg) // CHUNK
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.lists = (ids.contiguous(), torch.empty((R,), dtype=torch.int64, device=dev),
+                      torch.empty((R,), dtype=torch.int64, device=dev))
+        self.state = (torch.empty((N,), **i32), torch.empty((N,), **i32))
+        self.rays = (o.contiguous(), d.contiguous(), t0, startt, k0, trans)
+        self.n_seg = n_seg.to(torch.int64).reshape(())
+        self.out = (torch.empty((R, CHUNK), dtype=torch.bool, device=dev),
+                    torch.empty((R * CHUNK,), dtype=torch.int64, device=dev),
+                    torch.empty((R * CHUNK, 3), **f32), torch.empty((R * CHUNK, 3), **f32))
+        # one counter row a launch: a frame launches at most n_rounds + 1 times
+        self.counts = torch.zeros((self.n_rounds + 1, 3), dtype=torch.int64, device=dev)
+        self.host = torch.zeros((3,), dtype=torch.int64, pin_memory=dev.type == "cuda")
+        self.n_in, self.launches, self.tested, self.sampled = R, 0, 0, 0
+
+    def next(self) -> Round | None:
+        """March the next round of the rays still live: None once none is."""
+        k = self.launches
+        if self.n_in == 0:
+            if k == 0:  # a share with no ray: the frame's coarse pass counts all the same
+                with profiling.host_sync("render", "march"):
+                    self.tested += self.n_hit * int(self.n_seg)
+                self.launches = 1
+            return None
+        if k > self.n_rounds:
+            raise RuntimeError(f"a frame marches at most {self.n_rounds} rounds")
+        list_in = self.lists[0] if k == 0 else self.lists[1 + (k - 1) % 2]
+        list_out = self.lists[1 + k % 2]
+        a = Launch(*self.rays, *self.state, self.n_seg, list_in, list_out, *self.out, self.counts[k])
+        render_march(self.cfg, self.occupancy, self.pooled, a, self.n_in, k == 0, self.thresh)
+        self.launches += 1
+        with profiling.host_sync("render", "march"):
+            self.host.copy_(self.counts[k], non_blocking=True)
+            if self.host.is_pinned():
+                torch.cuda.current_stream(list_in.device).synchronize()
+        n_live, n_rows, n_seg = self.host.tolist()
+        if k == 0:
+            self.tested += self.n_hit * n_seg
+        self.tested += n_live * CHUNK
+        self.sampled += n_rows
+        self.n_in = n_live
+        if n_live == 0:
+            return None
+        mask, flat, pos, dirs = self.out
+        return Round(list_out[:n_live], mask[:n_live], flat[:n_rows], pos[:n_rows], dirs[:n_rows])

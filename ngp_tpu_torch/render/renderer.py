@@ -45,6 +45,13 @@ neighbouring cells, so the frame follows ngp_tpu's. Elsewhere (aabb_scale >
 1) it reads the grid point by point (occupancy_lookup). The cone lattice
 marches the whole lattice point by point, culling only the rays that miss
 the occupied box (ngp_tpu/render/renderer.py:921-932; _packed is None).
+On the card, where render/march.render_march_takes holds (the PACKED
+lattice), the spp-1 pass hands the coarse pass, the plan, each round's march
+and the live rays' bookkeeping to one kernel launch a round (FrameMarch over
+csrc/render_march.cu), which takes the same samples; the network and the
+composite read its flat rows and (L, 128) mask. The CPU, the other lattices
+and the spp-8 frame keep the plain march, and a spp-1 round the card marches
+that way counts in render.march.plain.
 
 One pass (n_spp = 1), exactly as ngp_tpu: the pixel offset
 ld_random_pixel_offset(0 if snap else spp); the march start
@@ -86,17 +93,19 @@ Every host<->device synchronisation of a frame (each nonzero, boolean-mask
 index, int() of a device value and blocking copy to the card) sits in a
 render.sync.<site> span at the statement that synchronises, in this module
 or in its callee (utils/qmc.py's ld_random_val, render/buffer.py's
-tonemap), and counts into the render.host_syncs counters.
+tonemap, render/march.py's one readback a round), and counts into the
+render.host_syncs counters.
 
 With `mesh` of size > 1 (parallel/mesh.py; ngp_tpu's _dp_render_tile,
 :658-684 and :1063-1104), every rank plans the whole frame (window, coarse
 premask, cull) and then renders every size-th of the kept rays from its rank
-on (image order in contiguous blocks would give one rank the sky), spp 1,
-spp n and every mode through the same pass; each rank's shaded rows land in
-a zero frame and one SUM all-reduce after its rounds merges the frame,
-exactly, since one rank writes each pixel. The envmap is composited after
-the merge. `last_frame_samples` and `last_frame_points` count this rank's
-share.
+on (image order in contiguous blocks would give one rank the sky; the
+kernel's spp-1 march, which culls as it marches, every size-th of the rays
+that meet the occupied box), spp 1, spp n and every mode through the same
+pass; each rank's shaded rows land in a zero frame and one SUM all-reduce
+after its rounds merges the frame, exactly, since one rank writes each
+pixel. The envmap is composited after the merge. `last_frame_samples` and
+`last_frame_points` count this rank's share.
 
 With an envmap (H, W, 4), every ray of a pass shows out + env * (1 - alpha),
 env the bilinear lookup along its direction: culled and missed rays the
@@ -114,6 +123,7 @@ import torch
 from ngp_tpu_torch.grid.occupancy import occupied_aabb, packed_neighborhood, pooled_occupancy
 from ngp_tpu_torch.models.ngp import NGPModel, apply_density_activation, apply_rgb_activation
 from ngp_tpu_torch.render.envmap import read_envmap
+from ngp_tpu_torch.render.march import FrameMarch, render_march_takes
 from ngp_tpu_torch.sampling.lattice import (
     CHUNK,
     SEG,
@@ -447,15 +457,13 @@ class Renderer:
             t0, alive = ray_start(aabb, o, d)
             seed = (torch.arange(n, dtype=torch.int64, device=dev) * 786433) & 0xFFFFFFFF
             startt = fma(ld_random_val(spp, seed), dt, t0)
-            dirs_w = (d + 1.0) * 0.5
-            cam_fwd, cam_org = cam[:, 2], cam[:, 3]
 
             rgb_acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
             opac = torch.zeros((n,), dtype=torch.float32, device=dev)
             trans = torch.ones((n,), dtype=torch.float32, device=dev)
-            taken = torch.zeros((n,), dtype=torch.int64, device=dev)
             processed = torch.zeros((n,), dtype=torch.int64, device=dev)  # included samples (Cost)
-            plan = packed = None
+            acc = (rgb_acc, opac, trans, processed)
+            plan = packed = march = None
             if scfg.cone_angle_constant == 0.0:
                 # the window, the coarse premask and the cull; a ray whose march
                 # starts outside the box samples nothing
@@ -467,24 +475,54 @@ class Renderer:
                     # rounds aligned at ordinal 0, as the full march's chunks: the
                     # window starts at k0 rounded down to a whole segment
                     w0 = k0[ids] - k0[ids] % SEG
-                    with profiling.host_sync("render", "n_seg"):
-                        n_seg = max(int(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG)), 1)
-                    ids, plan = self._share(
-                        *self._kept_segments(occupancy, o, d, t0, ids, w0, n_seg, w0 // SEG, n_lat // CHUNK, n_lat=n_lat)
-                    )
-                    live = torch.arange(ids.numel(), device=dev)
-                    rnd = plan.nxt[:, 0]
-                    if packed_march_supported(scfg):
-                        packed = packed_neighborhood(scfg, occupancy)
+                    n_seg = torch.clamp(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG), min=1)
+                    if render_march_takes(scfg, dev):
+                        # the coarse pass, the rounds and the cull in the kernel;
+                        # the window in segments stays on the card
+                        march = FrameMarch(scfg, occupancy, o, d, t0, startt, k0, self._share(ids, None)[0],
+                                           n_seg.to(torch.int64), trans, ids.numel(), thresh)
+                    else:
+                        with profiling.host_sync("render", "n_seg"):
+                            n_seg = int(n_seg)
+                        ids, plan = self._share(
+                            *self._kept_segments(occupancy, o, d, t0, ids, w0, n_seg, w0 // SEG, n_lat // CHUNK, n_lat=n_lat)
+                        )
+                        live = torch.arange(ids.numel(), device=dev)
+                        rnd = plan.nxt[:, 0]
+                        if packed_march_supported(scfg):
+                            packed = packed_neighborhood(scfg, occupancy)
             else:
                 # the cone lattice: the whole lattice, rays that miss the occupied box culled
                 lo, hi = ray_box_span(occ_aabb.to(device=dev, dtype=torch.float32), o, d)
                 with profiling.host_sync("render", "hit_rays"):
                     ids, _ = self._share(torch.nonzero(alive & (hi >= torch.clamp(lo, min=0.05))).squeeze(1), None)
+        if march is not None:
+            while True:
+                with profiling.span("spp_march"):
+                    r = march.next()
+                if r is None:
+                    break
+
+                def dense_pos(r=r):
+                    pos = torch.zeros(r.mask.shape + (3,), dtype=torch.float32, device=dev)
+                    pos.view(-1, 3)[r.flat] = r.pos
+                    return pos
+
+                self._composite_round(acc, r.ids, r.mask, r.flat, r.pos, r.dirs, dense_pos, None, cam, render_mode,
+                                      depth_scale)
+            self.last_frame_points += march.tested
+            self.last_frame_samples += march.sampled
+            with profiling.span("spp_composite"):
+                return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
+        with profiling.span("spp_march"):
+            dirs_w = (d + 1.0) * 0.5
+            taken = torch.zeros((n,), dtype=torch.int64, device=dev)
         for i0 in range(0, n_lat, CHUNK):
             if ids.numel() == 0:
                 break
             with profiling.span("spp_march"):
+                if dev.type == "cuda":
+                    profiling.count("render.march.plain")
                 if plan is None:
                     mask, t, pos, inside_end = march_chunk(scfg, aabb, occupancy, o[ids], d[ids], startt[ids], taken[ids], i0)
                 else:
@@ -495,33 +533,9 @@ class Renderer:
                 with profiling.host_sync("render", "samples"):
                     rows, cols = torch.nonzero(mask, as_tuple=True)
                 self.last_frame_samples += rows.numel()
-            with profiling.span("spp_network"):
-                sigma = torch.zeros(mask.shape, dtype=torch.float32, device=dev)
-                rgb = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
-                if rows.numel():
-                    sig_s, rgb_s = self._evaluate(
-                        aabb.relative_pos(pos[rows, cols]), dirs_w[ids[rows]], normals=render_mode == "Normals"
-                    )
-                    sigma[rows, cols] = sig_s
-                    rgb[rows, cols] = rgb_s
-            with profiling.span("spp_composite"):
-                dts = lattice_dt(scfg, t)
-                if render_mode == "Depth":
-                    z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
-                    rgb = z[..., None].expand(-1, -1, 3)
-                elif render_mode == "Distance":
-                    z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
-                    rgb = z[..., None].expand(-1, -1, 3)
-                elif render_mode == "Stepsize":
-                    rgb = warp_dt(dts, dt, scfg.n_cascades)[..., None].expand(-1, -1, 3)
-
-                alpha, include, wgt, tr = composite_weights(mask, torch.where(mask, sigma * dts, 0.0), trans[ids], thresh)
-                if render_mode == "AO":
-                    rgb = alpha[..., None].expand(-1, -1, 3)
-                rgb_acc[ids] += (wgt[..., None] * rgb).sum(dim=1)
-                opac[ids] += wgt.sum(dim=1)
-                trans[ids] = tr
-                processed[ids] += include.sum(dim=1)
+                flat, pos_s, dir_s = rows * mask.shape[1] + cols, pos[rows, cols], dirs_w[ids[rows]]
+            tr = self._composite_round(acc, ids, mask, flat, pos_s, dir_s, lambda pos=pos: pos, t, cam, render_mode,
+                                       depth_scale)
             with profiling.span("spp_march"):
                 tk = taken[ids] + mask.sum(dim=1)
                 taken[ids] = tk
@@ -536,6 +550,50 @@ class Renderer:
                         ids, live, rnd = ids[more], live[more], nxt[more]
         with profiling.span("spp_composite"):
             return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
+
+    def _composite_round(self, acc, ids, mask, flat, pos_s, dir_s, dense_pos, t, cam, render_mode, depth_scale):
+        """The network on a round's samples and the round's composite into the
+        pass's sums acc = (rgb_acc, opac, trans, processed), for the rays ids
+        (L,) with sample mask (L, W): the samples are the rows flat (M,) of the
+        (L, W) round, at positions pos_s (M, 3) with warped directions dir_s;
+        dense_pos() gives the round's (L, W, 3) positions (Depth and Distance
+        read them where a sample is), t (L, W) their t (None on a
+        constant-dt lattice, where only the step size is read). Returns the
+        rays' transmittance after the round (also written into trans)."""
+        rgb_acc, opac, trans, processed = acc
+        scfg = self.config.sampler
+        dev = mask.device
+        with profiling.span("spp_network"):
+            sigma = torch.zeros(mask.shape, dtype=torch.float32, device=dev)
+            rgb = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
+            if flat.numel():
+                sig_s, rgb_s = self._evaluate(
+                    AABB.scene(scfg.aabb_scale).relative_pos(pos_s), dir_s, normals=render_mode == "Normals"
+                )
+                sigma.view(-1)[flat] = sig_s
+                rgb.view(-1, 3)[flat] = rgb_s
+        with profiling.span("spp_composite"):
+            dts = torch.full(mask.shape, scfg.min_cone_stepsize, device=dev) if t is None else lattice_dt(scfg, t)
+            cam_fwd, cam_org = cam[:, 2], cam[:, 3]
+            if render_mode == "Depth":
+                z = ((dense_pos() - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
+                rgb = z[..., None].expand(-1, -1, 3)
+            elif render_mode == "Distance":
+                z = torch.linalg.norm(dense_pos() - cam_org, dim=-1) * depth_scale
+                rgb = z[..., None].expand(-1, -1, 3)
+            elif render_mode == "Stepsize":
+                rgb = warp_dt(dts, scfg.min_cone_stepsize, scfg.n_cascades)[..., None].expand(-1, -1, 3)
+
+            alpha, include, wgt, tr = composite_weights(
+                mask, torch.where(mask, sigma * dts, 0.0), trans[ids], self.config.render.transmittance_threshold
+            )
+            if render_mode == "AO":
+                rgb = alpha[..., None].expand(-1, -1, 3)
+            rgb_acc[ids] += (wgt[..., None] * rgb).sum(dim=1)
+            opac[ids] += wgt.sum(dim=1)
+            trans[ids] = tr
+            processed[ids] += include.sum(dim=1)
+        return tr
 
     def _render_passes(self, occupancy, occ_aabb, o, d, cam, spp, n_spp, render_mode, depth_scale, accum_space, env):
         """Passes spp .. spp + n_spp - 1 from one cover march -> (N, 4), their
