@@ -1936,7 +1936,8 @@ def phase_skip(tb, frames: list) -> dict:
 def phase_render_march(tb, bw, fp32_flops) -> dict:
     """The spp-1 renderer's march kernel (render_march) in the 800x800 Shade
     spp-1 view of the last ring pose: the frame through the kernel against
-    the plain path's (equal, with the same samples and points), its launches
+    the frame through its plain version, render_march_plain (equal, with the
+    same samples and points), its launches
     a frame and each launch's rays, rows and device ms (the profiler's)
     against the bytes the launches must move: a listed ray's id (8 B) and,
     after the first launch, its taken and round (8 B) and, where the round
@@ -1954,15 +1955,15 @@ def phase_render_march(tb, bw, fp32_flops) -> dict:
     r, scfg = tb._renderer, tb.config.sampler
     cam = torch.as_tensor(tb.rendering_buffer.camera_matrix, dtype=torch.float32, device="cuda")
     o, d = rd.camera_rays(cam, w, h, (float(h), float(h)), (0.5, 0.5), (0.5, 0.5))
-    take, real = rd.render_march_takes, rm.render_march
+    take, real = rm.render_march_takes, rm.render_march
     launches = []
 
     def frame(kernel: bool):
-        rd.render_march_takes = take if kernel else (lambda cfg, device: False)
+        rm.render_march_takes = take if kernel else (lambda cfg, device: False)
         try:
             out = r.render_rays(tb.grid.occupancy, cam, o, d, 0, "Shade", occ_aabb=tb.grid.occ_aabb)
         finally:
-            rd.render_march_takes = take
+            rm.render_march_takes = take
         return out, r.last_frame_samples, r.last_frame_points
 
     def spy(cfg, occupancy, pooled, a, n_in, first, thresh):

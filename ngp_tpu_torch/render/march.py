@@ -1,23 +1,33 @@
-"""The spp-1 renderer's march on the PACKED lattice as one kernel launch a round.
+"""The spp-1 pass's march: every round of a pass, on every device and lattice.
 
-Counterpart: none in ngp_tpu as a kernel; ngp_tpu's spp-1 tile marches as
-XLA code (ngp_tpu/render/renderer.py's _coarse_pass and the packed
-count_samples_segments). On the card, where render_march_takes holds,
-Renderer._render_pass hands its march to FrameMarch: csrc/render_march.cu's
-render_march launched once a round, each launch taking the live rays of the
-last one, dropping those that ended (the composite's transmittance under
-transmittance_threshold, the step cap, the box exit, no further round with a
-kept coarse segment), marching every other one to its next round that keeps
-a segment, and writing the round's samples as flat rows, the dense (L, 128)
-mask and the compacted live list. The host reads one counter triple a round
-(live rays, rows, the frame's window in segments), which sizes the
-network's evaluation. The samples are those of the renderer's plain march
-(_kept_segments, segment_plan, march_round) to the bit; the live list's
-order differs, and nothing after the march depends on it.
+Counterpart: ngp_tpu's spp-1 tile marches as XLA code
+(ngp_tpu/render/renderer.py's _coarse_pass and the packed
+count_samples_segments; the cone lattice's whole-lattice march,
+:921-932). pass_march builds the march of one spp-1 pass for the config and
+the rays' device, and Renderer._render_pass composites the rounds it hands
+out (Round), whatever the lattice.
 
-render_march_plain computes what one launch computes, in PyTorch, on any
-device, from coarse_segment_mask and segment_points: the kernel's card tests
-hold the kernel against it, and the CPU tests run FrameMarch on it.
+On a constant-dt lattice, FrameMarch: the frame's window against the
+occupied box (frame_geometry), then one launch a round, each launch taking
+the live rays of the last one, dropping those that ended (the composite's
+transmittance under transmittance_threshold, the step cap, the box exit, no
+further round with a kept coarse segment), marching every other one to its
+next round that keeps a segment, and writing the round's samples as flat
+rows, the dense (L, 128) mask and the compacted live list. The host reads
+one counter triple a round (live rays, rows, the frame's window in
+segments), which sizes the network's evaluation. A launch is
+csrc/render_march.cu's render_march where render_march_takes holds (a card
+frame on the PACKED lattice), else render_march_plain, its plain version in
+PyTorch with the same interface: the CPU's march, and a card's on the other
+constant-dt lattices (aabb_scale > 1, or dt too coarse for one packed word
+a segment), counted in render.march.plain. The kernel's live list comes in
+block order, the plain version's in list order; nothing after the march
+depends on it.
+
+On the cone lattice (dt grows with t), ConeMarch: every ray that meets the
+occupied box marches the whole lattice from ordinal 0, CHUNK points a round
+(march_chunk, point by point), its samples compacted on the host; a card's
+rounds count in render.march.plain.
 """
 
 import ctypes
@@ -32,24 +42,55 @@ from ngp_tpu_torch.sampling.lattice import (
     CHUNK,
     SEG,
     coarse_segment_mask,
+    march_chunk,
     n_lattice_points,
     packed_march_supported,
+    ray_box_span,
     segment_points,
+    window_start_inside,
 )
 from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.aabb import AABB
 from ngp_tpu_torch.utils.config import SamplerConfig
 
-RANGE_SEGS = CHUNK // SEG  # segments of a round
+RANGE_SEGS = CHUNK // SEG  # segments of one round of the fine march (128 lattice points)
 INT32_MAX = (1 << 31) - 1
+
+
+def frame_geometry(cfg, o: torch.Tensor, d: torch.Tensor, occ_aabb: torch.Tensor):
+    """Each ray's lattice window against the occupied box, as ngp_tpu's
+    _rays_slab_pass: (hit (N,) bool, k0 (N,) int64, span (N,) float32).
+    The box is inflated by dt + 1/G; k0 = floor((occ_lo - s_lo)/dt) - 2 and
+    span = ceil((occ_hi - max(occ_lo, s_lo))/dt) + 4 lattice steps from the
+    scene-box entry s_lo (>= 0.05), clipped to the lattice; XLA divides by
+    the constant dt as a product with float32(1/dt)."""
+    dt = cfg.min_cone_stepsize
+    n_lat = n_lattice_points(cfg)
+    dd = torch.where(d.abs() < 1e-12, 1e-12, d)
+
+    def slab(lo, hi):
+        t1, t2 = (lo - o) / dd, (hi - o) / dd
+        return torch.amax(torch.minimum(t1, t2), dim=-1), torch.amin(torch.maximum(t1, t2), dim=-1)
+
+    box = occ_aabb.to(device=o.device, dtype=torch.float32)
+    with profiling.host_sync("render", "frame_geometry"):  # copied to the card
+        margin = torch.tensor(dt + 1.0 / cfg.grid_size, dtype=torch.float32, device=o.device)
+    occ_lo, occ_hi = slab(box[0] - margin, box[1] + margin)
+    scene = AABB.scene(cfg.aabb_scale)
+    s_lo = torch.clamp(slab(scene.lo_t(o), scene.hi_t(o))[0], min=0.05)
+    with profiling.host_sync("render", "frame_geometry"):
+        inv_dt = torch.tensor(1.0 / dt, dtype=torch.float32, device=o.device)
+    k0 = torch.clamp(torch.floor((occ_lo - s_lo) * inv_dt) - 2.0, 0.0, float(n_lat))
+    start = torch.maximum(occ_lo, s_lo)
+    span = torch.minimum(torch.clamp(torch.ceil((occ_hi - start) * inv_dt) + 4.0, min=0.0), n_lat - k0)
+    return (occ_hi >= start) & (span > 0), k0.to(torch.int64), span
 
 
 def render_march_takes(cfg: SamplerConfig, device) -> bool:
     """Whether a spp-1 pass marches through render_march: tensors on the
-    card, the PACKED lattice (packed_march_supported: constant dt, so the
-    renderer builds a segment plan, aabb_scale 1 and one packed word a
-    segment), and ordinals, rounds and sample counts within the kernel's
-    int32 indices."""
+    card, the PACKED lattice (packed_march_supported: constant dt,
+    aabb_scale 1 and one packed word a segment), and ordinals, rounds and
+    sample counts within the kernel's int32 indices."""
     return (torch.device(device).type == "cuda" and packed_march_supported(cfg)
             and n_lattice_points(cfg) + CHUNK <= INT32_MAX and cfg.maximum_marching_steps <= INT32_MAX)
 
@@ -168,15 +209,19 @@ class RenderMarchOp(torch.autograd.Function):
 
 
 def render_march_plain(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, first: bool, thresh: float):
-    """render_march in PyTorch, on any device: the same rays, state, rows and
-    counts, the live list in list order (the kernel's is in block order).
-    Reads n_seg to the host. It exists for the tests, which hold the kernel
-    against it and run FrameMarch on the CPU through it: no path of the
-    renderer calls it."""
+    """render_march in PyTorch, on any device and constant-dt lattice: the
+    same rays, state, rows and counts, the live list in list order (the
+    kernel's is in block order). The kernel's plain version, which its card
+    tests hold it against, and the launch of every frame the kernel does not
+    take. It reads the grid from one packed word a segment where
+    packed_march_supported holds, as the kernel does, else point by point
+    (occupancy_lookup). Its host syncs (n_seg, two nonzeros, the counts'
+    copy) count at site `march`."""
     dev = a.o.device
     n_lat = n_lattice_points(cfg)
     n_rounds = n_lat // CHUNK
-    n_seg = int(a.n_seg)
+    with profiling.host_sync("render", "march"):
+        n_seg = int(a.n_seg)
     rays = a.list_in[:n_in]
     k0 = a.k0[rays]
     w0 = k0 - k0 % SEG
@@ -193,7 +238,8 @@ def render_march_plain(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: i
     seg_rnd = (s0[:, None] + torch.arange(n_seg, device=dev)[None, :]) // RANGE_SEGS
     ok = keep & (seg_rnd >= start[:, None]) & (seg_rnd < n_rounds)
     rnd = torch.where(ok, seg_rnd, n_rounds).amin(dim=1)
-    sel = torch.nonzero(go & (rnd < n_rounds)).squeeze(1)
+    with profiling.host_sync("render", "march"):
+        sel = torch.nonzero(go & (rnd < n_rounds)).squeeze(1)
     L = sel.numel()
     ray, rnd, taken, w0 = rays[sel], rnd[sel], taken[sel], w0[sel]
     # that round's points: the kept segments' valid ordinals
@@ -201,8 +247,9 @@ def render_march_plain(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: i
     kept = (j >= 0) & (j < n_seg) & keep[sel[:, None], j.clamp(0, n_seg - 1)]
     idx = CHUNK * rnd[:, None] + torch.arange(CHUNK, device=dev)[None, :]
     valid = kept.repeat_interleave(SEG, dim=1) & (idx < n_lat)
+    packed = packed_neighborhood(cfg, occupancy) if packed_march_supported(cfg) else None
     inside, occ, _, pos = segment_points(cfg, AABB.scene(cfg.aabb_scale), occupancy, a.o[ray], a.d[ray], a.startt[ray],
-                                         idx, packed_neighborhood(cfg, occupancy))
+                                         idx, packed)
     mask = valid & inside & occ
     m = mask.to(torch.int64)
     mask = mask & (taken[:, None] + torch.cumsum(m, dim=1) - m < cfg.maximum_marching_steps)
@@ -210,44 +257,80 @@ def render_march_plain(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: i
     taken = taken + mask.sum(dim=1)
     a.taken[ray] = taken.to(torch.int32)
     a.rnd[ray] = torch.where(exited | (taken >= cfg.maximum_marching_steps), -1, rnd).to(torch.int32)
-    rows, cols = torch.nonzero(mask, as_tuple=True)
+    with profiling.host_sync("render", "march"):
+        rows, cols = torch.nonzero(mask, as_tuple=True)
     M = rows.numel()
     a.list_out[:L] = ray
     a.mask[:L] = mask
     a.flat[:M] = rows * CHUNK + cols
     a.pos[:M] = pos[rows, cols]
     a.dirs[:M] = (a.d[ray[rows]] + 1.0) * 0.5
-    a.counts.copy_(torch.tensor([L, M, n_seg], dtype=torch.int64))
+    with profiling.host_sync("render", "march"):  # copied to the counts' device
+        a.counts.copy_(torch.tensor([L, M, n_seg], dtype=torch.int64))
 
 
 class Round(NamedTuple):
-    """A marched round: the live rays' ids (L,), their (L, 128) sample mask,
-    and its rows: flat (M,) indices row * 128 + column, positions and warped
-    directions (M, 3)."""
+    """A marched round: the live rays' ids (L,), their (L, W) sample mask,
+    and its rows: flat (M,) indices row * W + column, positions and warped
+    directions (M, 3); t (L, W) the points' t where the lattice's dt varies
+    (None on constant dt, where the composite reads only the step size)."""
 
     ids: torch.Tensor
     mask: torch.Tensor
     flat: torch.Tensor
     pos: torch.Tensor
     dirs: torch.Tensor
+    t: torch.Tensor | None = None
+
+
+def pass_march(cfg: SamplerConfig, occupancy, occ_aabb, o, d, t0, startt, alive, trans, thresh: float,
+               share=slice(None)):
+    """The march of one spp-1 pass over the rays o, d (N, 3), starting at t0
+    (N,) unjittered and startt jittered, those `alive` whose start lies in
+    the box; trans (N,) is the pass's transmittance, which the composite
+    updates in place between rounds. `share` picks this rank's share of the
+    rays that meet the occupied box. FrameMarch on a constant-dt lattice
+    (culling the rays whose window misses the occupied box or whose march
+    starts outside the box), ConeMarch on the cone lattice; None where no
+    ray meets the occupied box."""
+    aabb = AABB.scene(cfg.aabb_scale)
+    if cfg.cone_angle_constant != 0.0:
+        lo, hi = ray_box_span(occ_aabb.to(device=o.device, dtype=torch.float32), o, d)
+        with profiling.host_sync("render", "hit_rays"):
+            ids = torch.nonzero(alive & (hi >= torch.clamp(lo, min=0.05))).squeeze(1)
+        return ConeMarch(cfg, occupancy, o, d, startt, ids[share], trans, thresh) if ids.numel() else None
+    hit, k0, span = frame_geometry(cfg, o, d, occ_aabb)
+    start_in = window_start_inside(cfg, aabb, o, d, startt, torch.zeros_like(k0))
+    with profiling.host_sync("render", "hit_rays"):
+        ids = torch.nonzero(hit & alive & start_in).squeeze(1)
+    if not ids.numel():
+        return None
+    # rounds aligned at ordinal 0, as the full march's chunks: the window
+    # starts at k0 rounded down to a whole segment; its length in segments
+    # stays on the device
+    w0 = k0[ids] - k0[ids] % SEG
+    n_seg = torch.clamp(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG), min=1)
+    return FrameMarch(cfg, occupancy, o, d, t0, startt, k0, ids[share], n_seg, trans, ids.numel(), thresh)
 
 
 class FrameMarch:
-    """The march of one spp-1 pass on the PACKED lattice, one launch a round.
+    """The march of one spp-1 pass on a constant-dt lattice, one launch a
+    round: render_march where render_march_takes holds, else
+    render_march_plain (counted in render.march.plain on the card).
 
     `ids` (R,) are the rays to march (the hit rays, or a rank's share of
-    them), n_seg () the frame's window in segments on the device (the
-    plain path's n_seg), n_hit the frame's hit rays (the coarse pass's rows in
-    the plain path's count of tested points). `trans` (N,) is the pass's
+    them), n_seg () the frame's window in segments on the device, n_hit the
+    frame's hit rays (the coarse pass's rows). `trans` (N,) is the pass's
     transmittance, which the composite updates in place between rounds.
-    `tested` and `sampled` count, as the plain path counts them, the lattice
-    points the march tested (n_hit * n_seg coarse midpoints, 128 a marched
-    ray a round) and the rows it wrote."""
+    `tested` and `sampled` count the lattice points the march tested
+    (n_hit * n_seg coarse midpoints, 128 a marched ray a round) and the rows
+    it wrote."""
 
     def __init__(self, cfg: SamplerConfig, occupancy, o, d, t0, startt, k0, ids, n_seg, trans, n_hit: int, thresh: float):
         dev = o.device
         N, R = o.shape[0], ids.numel()
         self.cfg, self.occupancy, self.thresh, self.n_hit = cfg, occupancy, thresh, n_hit
+        self.kernel = render_march_takes(cfg, dev)
         self.pooled = pooled_occupancy(cfg, occupancy)
         self.n_rounds = n_lattice_points(cfg) // CHUNK
         i32 = dict(dtype=torch.int32, device=dev)
@@ -279,7 +362,10 @@ class FrameMarch:
         list_in = self.lists[0] if k == 0 else self.lists[1 + (k - 1) % 2]
         list_out = self.lists[1 + k % 2]
         a = Launch(*self.rays, *self.state, self.n_seg, list_in, list_out, *self.out, self.counts[k])
-        render_march(self.cfg, self.occupancy, self.pooled, a, self.n_in, k == 0, self.thresh)
+        if not self.kernel and list_in.device.type == "cuda":
+            profiling.count("render.march.plain")
+        launch = render_march if self.kernel else render_march_plain
+        launch(self.cfg, self.occupancy, self.pooled, a, self.n_in, k == 0, self.thresh)
         self.launches += 1
         with profiling.host_sync("render", "march"):
             self.host.copy_(self.counts[k], non_blocking=True)
@@ -295,3 +381,44 @@ class FrameMarch:
             return None
         mask, flat, pos, dirs = self.out
         return Round(list_out[:n_live], mask[:n_live], flat[:n_rows], pos[:n_rows], dirs[:n_rows])
+
+
+class ConeMarch:
+    """The march of one spp-1 pass on the cone lattice: the rays `ids` march
+    the whole lattice from ordinal 0, CHUNK points a round (march_chunk),
+    until the composite's transmittance falls under `thresh`, the step cap
+    or the box exit ends them. trans, tested and sampled as FrameMarch's."""
+
+    def __init__(self, cfg: SamplerConfig, occupancy, o, d, startt, ids, trans, thresh: float):
+        self.cfg, self.occupancy, self.o, self.d, self.startt, self.trans, self.thresh = (
+            cfg, occupancy, o, d, startt, trans, thresh)
+        self.aabb = AABB.scene(cfg.aabb_scale)
+        self.dirs = (d + 1.0) * 0.5
+        self.taken = torch.zeros((o.shape[0],), dtype=torch.int64, device=o.device)
+        self.n_lat = n_lattice_points(cfg)
+        self.ids, self.i0, self.last, self.tested, self.sampled = ids, 0, None, 0, 0
+
+    def next(self) -> Round | None:
+        """Drop the rays the last round ended, march the next round of the
+        rest: None once none is left or the lattice is done."""
+        cfg, ids = self.cfg, self.ids
+        if self.last is not None:
+            (mask, inside_end), self.last = self.last, None
+            tk = self.taken[ids] + mask.sum(dim=1)
+            self.taken[ids] = tk
+            more = (self.trans[ids] >= self.thresh) & (tk < cfg.maximum_marching_steps)
+            with profiling.host_sync("render", "live_rays"):
+                ids = self.ids = ids[more & inside_end]
+        if self.i0 >= self.n_lat or ids.numel() == 0:
+            return None
+        if ids.device.type == "cuda":
+            profiling.count("render.march.plain")
+        mask, t, pos, inside_end = march_chunk(cfg, self.aabb, self.occupancy, self.o[ids], self.d[ids],
+                                               self.startt[ids], self.taken[ids], self.i0)
+        self.i0 += CHUNK
+        self.last = (mask, inside_end)
+        self.tested += mask.numel()
+        with profiling.host_sync("render", "samples"):
+            rows, cols = torch.nonzero(mask, as_tuple=True)
+        self.sampled += rows.numel()
+        return Round(ids, mask, rows * CHUNK + cols, pos[rows, cols], self.dirs[ids[rows]], t)

@@ -35,23 +35,25 @@ segment to the next, so the rounds a ray takes, the points that stop it
 (the transmittance stop, the running sample cap, the box exit) and so the
 network samples of the frame are the full march's. The break-on-exit is
 count_samples_segments': the window's first point inside, then a pointwise
-box test (the box is convex). Where packed_march_supported holds, the spp-1
+box test (the box is convex). Where packed_march_supported holds, the
 march reads the occupancy of a segment's 8 points from one packed 3^3 word
-(packed_neighborhood, built once a frame), as ngp_tpu's spp-1 tile does
-(Renderer._packed into count_samples_segments): a packed word addresses a
-point by floor(pos * G), occupancy_lookup by floor(((pos - 0.5) + 0.5) * G),
-and below 0.25 the two put a point within an ulp of a cell face in
-neighbouring cells, so the frame follows ngp_tpu's. Elsewhere (aabb_scale >
-1) it reads the grid point by point (occupancy_lookup). The cone lattice
-marches the whole lattice point by point, culling only the rays that miss
-the occupied box (ngp_tpu/render/renderer.py:921-932; _packed is None).
-On the card, where render/march.render_march_takes holds (the PACKED
-lattice), the spp-1 pass hands the coarse pass, the plan, each round's march
-and the live rays' bookkeeping to one kernel launch a round (FrameMarch over
-csrc/render_march.cu), which takes the same samples; the network and the
-composite read its flat rows and (L, 128) mask. The CPU, the other lattices
-and the spp-8 frame keep the plain march, and a spp-1 round the card marches
-that way counts in render.march.plain.
+(packed_neighborhood), as ngp_tpu's tiles do (Renderer._packed into
+count_samples_segments): a packed word addresses a point by floor(pos * G),
+occupancy_lookup by floor(((pos - 0.5) + 0.5) * G), and below 0.25 the two
+put a point within an ulp of a cell face in neighbouring cells, so the frame
+follows ngp_tpu's. Elsewhere (aabb_scale > 1) the spp-1 march reads the grid
+point by point (occupancy_lookup). The cone lattice marches the whole
+lattice point by point, culling only the rays that miss the occupied box
+(ngp_tpu/render/renderer.py:921-932; _packed is None).
+
+A spp-1 pass marches through render/march.py on every device and lattice:
+pass_march builds the pass's march (FrameMarch on constant dt, one launch a
+round of csrc/render_march.cu's kernel on the card's PACKED lattice or of
+its plain PyTorch version elsewhere; ConeMarch's whole-lattice rounds on the
+cone lattice), and _render_pass composites each Round it hands out: the
+network and the composite read the round's flat sample rows and its
+(L, W) mask. The spp-8 frame plans and marches here (_kept_segments,
+segment_plan, march_round).
 
 One pass (n_spp = 1), exactly as ngp_tpu: the pixel offset
 ld_random_pixel_offset(0 if snap else spp); the march start
@@ -93,18 +95,18 @@ Every host<->device synchronisation of a frame (each nonzero, boolean-mask
 index, int() of a device value and blocking copy to the card) sits in a
 render.sync.<site> span at the statement that synchronises, in this module
 or in its callee (utils/qmc.py's ld_random_val, render/buffer.py's
-tonemap, render/march.py's one readback a round), and counts into the
-render.host_syncs counters.
+tonemap, render/march.py's frame geometry, hit rays and syncs a round), and
+counts into the render.host_syncs counters.
 
 With `mesh` of size > 1 (parallel/mesh.py; ngp_tpu's _dp_render_tile,
 :658-684 and :1063-1104), every rank plans the whole frame (window, coarse
 premask, cull) and then renders every size-th of the kept rays from its rank
-on (image order in contiguous blocks would give one rank the sky; the
-kernel's spp-1 march, which culls as it marches, every size-th of the rays
-that meet the occupied box), spp 1, spp n and every mode through the same
-pass; each rank's shaded rows land in a zero frame and one SUM all-reduce
-after its rounds merges the frame, exactly, since one rank writes each
-pixel. The envmap is composited after the merge. `last_frame_samples` and
+on (image order in contiguous blocks would give one rank the sky; the spp-1
+march, which culls as it marches, every size-th of the rays that meet the
+occupied box), spp 1, spp n and every mode through the same pass; each
+rank's shaded rows land in a zero frame and one SUM all-reduce after its
+rounds merges the frame, exactly, since one rank writes each pixel. The
+envmap is composited after the merge. `last_frame_samples` and
 `last_frame_points` count this rank's share.
 
 With an envmap (H, W, 4), every ray of a pass shows out + env * (1 - alpha),
@@ -123,17 +125,13 @@ import torch
 from ngp_tpu_torch.grid.occupancy import occupied_aabb, packed_neighborhood, pooled_occupancy
 from ngp_tpu_torch.models.ngp import NGPModel, apply_density_activation, apply_rgb_activation
 from ngp_tpu_torch.render.envmap import read_envmap
-from ngp_tpu_torch.render.march import FrameMarch, render_march_takes
+from ngp_tpu_torch.render.march import RANGE_SEGS, Round, frame_geometry, pass_march
 from ngp_tpu_torch.sampling.lattice import (
     CHUNK,
     SEG,
     coarse_segment_mask,
     jitter_cover_supported,
     lattice_dt,
-    march_chunk,
-    n_lattice_points,
-    packed_march_supported,
-    ray_box_span,
     segment_points,
     window_start_inside,
 )
@@ -151,7 +149,6 @@ EVAL_BATCH = 1 << 18  # rows per network evaluation (the fused kernel's batch)
 # 1024 rays (small frames) every round is its last stage's D = min(256, W)
 SHARE_ROUND = 256
 SPP_BLOCK_SLOTS = 1 << 27  # (ray, pass, lattice point) entries a block of the n_spp composite holds
-RANGE_SEGS = CHUNK // SEG  # segments of one round of the fine march (128 lattice points)
 
 
 def camera_rays(cam: torch.Tensor, w: int, h: int, focal_length, principal_point, off):
@@ -187,35 +184,6 @@ def ray_start(aabb: AABB, o: torch.Tensor, d: torch.Tensor):
     return t0, aabb.contains(fma(d, t0[:, None], o))
 
 
-def frame_geometry(cfg, o: torch.Tensor, d: torch.Tensor, occ_aabb: torch.Tensor):
-    """Each ray's lattice window against the occupied box, as ngp_tpu's
-    _rays_slab_pass: (hit (N,) bool, k0 (N,) int64, span (N,) float32).
-    The box is inflated by dt + 1/G; k0 = floor((occ_lo - s_lo)/dt) - 2 and
-    span = ceil((occ_hi - max(occ_lo, s_lo))/dt) + 4 lattice steps from the
-    scene-box entry s_lo (>= 0.05), clipped to the lattice; XLA divides by
-    the constant dt as a product with float32(1/dt)."""
-    dt = cfg.min_cone_stepsize
-    n_lat = n_lattice_points(cfg)
-    dd = torch.where(d.abs() < 1e-12, 1e-12, d)
-
-    def slab(lo, hi):
-        t1, t2 = (lo - o) / dd, (hi - o) / dd
-        return torch.amax(torch.minimum(t1, t2), dim=-1), torch.amin(torch.maximum(t1, t2), dim=-1)
-
-    box = occ_aabb.to(device=o.device, dtype=torch.float32)
-    with profiling.host_sync("render", "frame_geometry"):  # copied to the card
-        margin = torch.tensor(dt + 1.0 / cfg.grid_size, dtype=torch.float32, device=o.device)
-    occ_lo, occ_hi = slab(box[0] - margin, box[1] + margin)
-    scene = AABB.scene(cfg.aabb_scale)
-    s_lo = torch.clamp(slab(scene.lo_t(o), scene.hi_t(o))[0], min=0.05)
-    with profiling.host_sync("render", "frame_geometry"):
-        inv_dt = torch.tensor(1.0 / dt, dtype=torch.float32, device=o.device)
-    k0 = torch.clamp(torch.floor((occ_lo - s_lo) * inv_dt) - 2.0, 0.0, float(n_lat))
-    start = torch.maximum(occ_lo, s_lo)
-    span = torch.minimum(torch.clamp(torch.ceil((occ_hi - start) * inv_dt) + 4.0, min=0.0), n_lat - k0)
-    return (occ_hi >= start) & (span > 0), k0.to(torch.int64), span
-
-
 def composite_weights(valid: torch.Tensor, sdt: torch.Tensor, trans: torch.Tensor, thresh: float):
     """Front-to-back compositing of samples along the last axis (early stop:
     a sample counts iff the transmittance BEFORE it is >= thresh), from
@@ -232,24 +200,22 @@ class SegmentPlan(NamedTuple):
     """The kept coarse segments of a frame's rays: segment j of ray i holds
     the lattice ordinals w0[i] + 8j .. w0[i] + 8j + 7 and lies in round
     (s0[i] + j) // RANGE_SEGS; nxt[i, r] is the first round >= r that holds a
-    kept segment of ray i (n_rounds, the last column, where none does);
-    ordinals >= n_lat are not marched (None: no limit)."""
+    kept segment of ray i (n_rounds, the last column, where none does)."""
 
     w0: torch.Tensor  # (R,) int64
     s0: torch.Tensor  # (R,) int64
     keep: torch.Tensor  # (R, n_seg) bool
     nxt: torch.Tensor  # (R, n_rounds + 1) int64
-    n_lat: int | None = None
 
     def rows(self, sel) -> "SegmentPlan":
         """The plan of the rows `sel`; a boolean mask indexes each of the
         four tensors, a host sync each."""
         mask = isinstance(sel, torch.Tensor) and sel.dtype == torch.bool
         with profiling.host_sync("render", "plan_rows", 4 if mask else 0):
-            return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel], self.n_lat)
+            return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel])
 
 
-def segment_plan(keep, w0, s0, n_rounds: int, limit=None, n_lat: int | None = None) -> SegmentPlan:
+def segment_plan(keep, w0, s0, n_rounds: int, limit=None) -> SegmentPlan:
     """The plan of kept segments `keep` (R, n_seg); rounds >= `limit` (R,)
     (or n_rounds) hold nothing."""
     R, n_seg = keep.shape
@@ -261,7 +227,7 @@ def segment_plan(keep, w0, s0, n_rounds: int, limit=None, n_lat: int | None = No
     has[:, n_rounds] = True
     first = torch.where(has, torch.arange(n_rounds + 1, device=dev), n_rounds)
     nxt = torch.flip(torch.cummin(torch.flip(first, [1]), dim=1).values, [1])
-    return SegmentPlan(w0, s0, keep, nxt, n_lat)
+    return SegmentPlan(w0, s0, keep, nxt)
 
 
 def march_round(cfg, aabb: AABB, occupancy, packed, plan: SegmentPlan, sel, rnd, o, d, startt, taken, lookahead: int = 0,
@@ -279,8 +245,6 @@ def march_round(cfg, aabb: AABB, occupancy, packed, plan: SegmentPlan, sel, rnd,
     kept = (j >= 0) & (j < n_seg) & plan.keep.reshape(-1)[sel[:, None] * n_seg + j.clamp(0, n_seg - 1)]
     idx = plan.w0[sel][:, None] + (j[:, :, None] * SEG + torch.arange(SEG, device=dev)).reshape(j.shape[0], -1)
     valid = kept.repeat_interleave(SEG, dim=1)
-    if plan.n_lat is not None:
-        valid = valid & (idx < plan.n_lat)
     inside, occ, t, pos = segment_points(cfg, aabb, occupancy, o, d, startt, idx, packed, jitter_cover)
     mask = valid & inside & occ
     m = mask.to(torch.int64)
@@ -416,13 +380,16 @@ class Renderer:
     def _sharded(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
 
+    def _rank_rays(self) -> slice:
+        """This rank's share of a frame's rays: every size-th from its rank on."""
+        return slice(self.mesh.rank, None, self.mesh.size) if self._sharded() else slice(None)
+
     def _share(self, ids, plan):
-        """This rank's share of the frame's kept rays ids (and their plan
-        rows): every size-th from its rank on."""
+        """This rank's share of the frame's kept rays ids and their plan rows."""
         if not self._sharded():
             return ids, plan
-        sel = slice(self.mesh.rank, None, self.mesh.size)
-        return ids[sel], None if plan is None else plan.rows(sel)
+        sel = self._rank_rays()
+        return ids[sel], plan.rows(sel)
 
     def _merge(self, out: torch.Tensor) -> torch.Tensor:
         """The frame from every rank's rows (zero elsewhere): one SUM all-reduce."""
@@ -431,155 +398,76 @@ class Renderer:
             self.mesh.all_reduce_([out], "sum")
         return out
 
-    def _kept_segments(self, occupancy, o, d, t0, ids, w0, n_seg: int, s0, n_rounds: int, limit=None, n_lat=None):
+    def _kept_segments(self, occupancy, o, d, t0, ids, w0, n_seg: int, s0, n_rounds: int, limit=None):
         """The coarse pass on rays ids at the unjittered t0 (ngp_tpu's
         _coarse_pass): (ids of the rays with a kept segment in a round they
         march, their SegmentPlan)."""
         scfg = self.config.sampler
         keep = coarse_segment_mask(scfg, pooled_occupancy(scfg, occupancy), o[ids], d[ids], t0[ids], n_seg, w0)
         self.last_frame_points += keep.numel()
-        plan = segment_plan(keep, w0, s0, n_rounds, limit, n_lat)
+        plan = segment_plan(keep, w0, s0, n_rounds, limit)
         cull = plan.nxt[:, 0] < n_rounds
         with profiling.host_sync("render", "cull"):  # a boolean-mask index
             ids = ids[cull]
         return ids, plan.rows(cull)
 
     def _render_pass(self, occupancy, occ_aabb, o, d, cam, spp, render_mode, depth_scale):
-        """One exact pass over all rays -> (N, 4)."""
+        """One exact pass over all rays -> (N, 4): the rounds of
+        march.pass_march composited one by one."""
         dev = occupancy.device
         scfg = self.config.sampler
-        aabb = AABB.scene(scfg.aabb_scale)
-        dt = scfg.min_cone_stepsize
-        thresh = self.config.render.transmittance_threshold
         n = o.shape[0]
-        n_lat = n_lattice_points(scfg)
         with profiling.span("spp_march"):
-            t0, alive = ray_start(aabb, o, d)
+            t0, alive = ray_start(AABB.scene(scfg.aabb_scale), o, d)
             seed = (torch.arange(n, dtype=torch.int64, device=dev) * 786433) & 0xFFFFFFFF
-            startt = fma(ld_random_val(spp, seed), dt, t0)
-
+            startt = fma(ld_random_val(spp, seed), scfg.min_cone_stepsize, t0)
             rgb_acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
             opac = torch.zeros((n,), dtype=torch.float32, device=dev)
             trans = torch.ones((n,), dtype=torch.float32, device=dev)
             processed = torch.zeros((n,), dtype=torch.int64, device=dev)  # included samples (Cost)
-            acc = (rgb_acc, opac, trans, processed)
-            plan = packed = march = None
-            if scfg.cone_angle_constant == 0.0:
-                # the window, the coarse premask and the cull; a ray whose march
-                # starts outside the box samples nothing
-                hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
-                start_in = window_start_inside(scfg, aabb, o, d, startt, torch.zeros_like(k0))
-                with profiling.host_sync("render", "hit_rays"):
-                    ids = torch.nonzero(hit & alive & start_in).squeeze(1)
-                if ids.numel():
-                    # rounds aligned at ordinal 0, as the full march's chunks: the
-                    # window starts at k0 rounded down to a whole segment
-                    w0 = k0[ids] - k0[ids] % SEG
-                    n_seg = torch.clamp(torch.ceil((k0[ids] - w0 + span[ids]).max() / SEG), min=1)
-                    if render_march_takes(scfg, dev):
-                        # the coarse pass, the rounds and the cull in the kernel;
-                        # the window in segments stays on the card
-                        march = FrameMarch(scfg, occupancy, o, d, t0, startt, k0, self._share(ids, None)[0],
-                                           n_seg.to(torch.int64), trans, ids.numel(), thresh)
-                    else:
-                        with profiling.host_sync("render", "n_seg"):
-                            n_seg = int(n_seg)
-                        ids, plan = self._share(
-                            *self._kept_segments(occupancy, o, d, t0, ids, w0, n_seg, w0 // SEG, n_lat // CHUNK, n_lat=n_lat)
-                        )
-                        live = torch.arange(ids.numel(), device=dev)
-                        rnd = plan.nxt[:, 0]
-                        if packed_march_supported(scfg):
-                            packed = packed_neighborhood(scfg, occupancy)
-            else:
-                # the cone lattice: the whole lattice, rays that miss the occupied box culled
-                lo, hi = ray_box_span(occ_aabb.to(device=dev, dtype=torch.float32), o, d)
-                with profiling.host_sync("render", "hit_rays"):
-                    ids, _ = self._share(torch.nonzero(alive & (hi >= torch.clamp(lo, min=0.05))).squeeze(1), None)
-        if march is not None:
-            while True:
-                with profiling.span("spp_march"):
-                    r = march.next()
-                if r is None:
-                    break
-
-                def dense_pos(r=r):
-                    pos = torch.zeros(r.mask.shape + (3,), dtype=torch.float32, device=dev)
-                    pos.view(-1, 3)[r.flat] = r.pos
-                    return pos
-
-                self._composite_round(acc, r.ids, r.mask, r.flat, r.pos, r.dirs, dense_pos, None, cam, render_mode,
-                                      depth_scale)
-            self.last_frame_points += march.tested
-            self.last_frame_samples += march.sampled
-            with profiling.span("spp_composite"):
-                return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
-        with profiling.span("spp_march"):
-            dirs_w = (d + 1.0) * 0.5
-            taken = torch.zeros((n,), dtype=torch.int64, device=dev)
-        for i0 in range(0, n_lat, CHUNK):
-            if ids.numel() == 0:
+            march = pass_march(scfg, occupancy, occ_aabb, o, d, t0, startt, alive, trans,
+                               self.config.render.transmittance_threshold, self._rank_rays())
+        while march is not None:
+            with profiling.span("spp_march"):
+                r = march.next()
+            if r is None:
+                self.last_frame_points += march.tested
+                self.last_frame_samples += march.sampled
                 break
-            with profiling.span("spp_march"):
-                if dev.type == "cuda":
-                    profiling.count("render.march.plain")
-                if plan is None:
-                    mask, t, pos, inside_end = march_chunk(scfg, aabb, occupancy, o[ids], d[ids], startt[ids], taken[ids], i0)
-                else:
-                    mask, t, pos, _, exited = march_round(
-                        scfg, aabb, occupancy, packed, plan, live, rnd, o[ids], d[ids], startt[ids], taken[ids]
-                    )
-                self.last_frame_points += mask.numel()
-                with profiling.host_sync("render", "samples"):
-                    rows, cols = torch.nonzero(mask, as_tuple=True)
-                self.last_frame_samples += rows.numel()
-                flat, pos_s, dir_s = rows * mask.shape[1] + cols, pos[rows, cols], dirs_w[ids[rows]]
-            tr = self._composite_round(acc, ids, mask, flat, pos_s, dir_s, lambda pos=pos: pos, t, cam, render_mode,
-                                       depth_scale)
-            with profiling.span("spp_march"):
-                tk = taken[ids] + mask.sum(dim=1)
-                taken[ids] = tk
-                more = (tr >= thresh) & (tk < scfg.maximum_marching_steps)
-                if plan is None:
-                    with profiling.host_sync("render", "live_rays"):
-                        ids = ids[more & inside_end]
-                else:
-                    nxt = plan.nxt[live, rnd + 1]
-                    more = more & ~exited & (nxt < plan.nxt.shape[1] - 1)
-                    with profiling.host_sync("render", "live_rays", 3):
-                        ids, live, rnd = ids[more], live[more], nxt[more]
+            self._composite_round((rgb_acc, opac, trans, processed), r, cam, render_mode, depth_scale)
         with profiling.span("spp_composite"):
             return self._merge(self._shade(rgb_acc, opac, processed, render_mode))
 
-    def _composite_round(self, acc, ids, mask, flat, pos_s, dir_s, dense_pos, t, cam, render_mode, depth_scale):
+    def _composite_round(self, acc, r: Round, cam, render_mode, depth_scale):
         """The network on a round's samples and the round's composite into the
-        pass's sums acc = (rgb_acc, opac, trans, processed), for the rays ids
-        (L,) with sample mask (L, W): the samples are the rows flat (M,) of the
-        (L, W) round, at positions pos_s (M, 3) with warped directions dir_s;
-        dense_pos() gives the round's (L, W, 3) positions (Depth and Distance
-        read them where a sample is), t (L, W) their t (None on a
-        constant-dt lattice, where only the step size is read). Returns the
-        rays' transmittance after the round (also written into trans)."""
+        pass's sums acc = (rgb_acc, opac, trans, processed), for the round's
+        rays r.ids (L,) with sample mask r.mask (L, W): the samples are its
+        rows r.flat (M,) at positions r.pos with warped directions r.dirs.
+        Depth and Distance read the positions where a sample is, the step
+        size comes from r.t where the lattice's dt varies."""
         rgb_acc, opac, trans, processed = acc
         scfg = self.config.sampler
+        ids, mask, flat = r.ids, r.mask, r.flat
         dev = mask.device
         with profiling.span("spp_network"):
             sigma = torch.zeros(mask.shape, dtype=torch.float32, device=dev)
             rgb = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
             if flat.numel():
                 sig_s, rgb_s = self._evaluate(
-                    AABB.scene(scfg.aabb_scale).relative_pos(pos_s), dir_s, normals=render_mode == "Normals"
+                    AABB.scene(scfg.aabb_scale).relative_pos(r.pos), r.dirs, normals=render_mode == "Normals"
                 )
                 sigma.view(-1)[flat] = sig_s
                 rgb.view(-1, 3)[flat] = rgb_s
         with profiling.span("spp_composite"):
-            dts = torch.full(mask.shape, scfg.min_cone_stepsize, device=dev) if t is None else lattice_dt(scfg, t)
+            dts = torch.full(mask.shape, scfg.min_cone_stepsize, device=dev) if r.t is None else lattice_dt(scfg, r.t)
             cam_fwd, cam_org = cam[:, 2], cam[:, 3]
-            if render_mode == "Depth":
-                z = ((dense_pos() - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
-                rgb = z[..., None].expand(-1, -1, 3)
-            elif render_mode == "Distance":
-                z = torch.linalg.norm(dense_pos() - cam_org, dim=-1) * depth_scale
+            if render_mode in ("Depth", "Distance"):
+                pos = torch.zeros(mask.shape + (3,), dtype=torch.float32, device=dev)
+                pos.view(-1, 3)[flat] = r.pos
+                if render_mode == "Depth":
+                    z = ((pos - cam_org) * cam_fwd).sum(dim=-1) * depth_scale
+                else:
+                    z = torch.linalg.norm(pos - cam_org, dim=-1) * depth_scale
                 rgb = z[..., None].expand(-1, -1, 3)
             elif render_mode == "Stepsize":
                 rgb = warp_dt(dts, scfg.min_cone_stepsize, scfg.n_cascades)[..., None].expand(-1, -1, 3)
@@ -593,7 +481,6 @@ class Renderer:
             opac[ids] += wgt.sum(dim=1)
             trans[ids] = tr
             processed[ids] += include.sum(dim=1)
-        return tr
 
     def _render_passes(self, occupancy, occ_aabb, o, d, cam, spp, n_spp, render_mode, depth_scale, accum_space, env):
         """Passes spp .. spp + n_spp - 1 from one cover march -> (N, 4), their

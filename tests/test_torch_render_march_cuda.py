@@ -6,10 +6,10 @@ density, as early in training, so that the cap cuts a ray's second round, with
 its first round's samples carried, and ends it), with the kernel launch by
 launch against its plain version on copies of the same inputs (the live list,
 every mask row and sample row, the rays' taken and next round, the counters),
-every round the frame composites against the renderer's plain march
-(_kept_segments, segment_plan, march_round) to the bit, and whole frames in
-all seven modes against the plain path's, with the same sample and point
-counts; the ranks' shares of a sharded frame; one launch a round, no plain
+every round the frame composites against the tests' planned march
+(tests/planned_march.py: segment_plan, march_round) to the bit, and whole
+frames in all seven modes against the planned march's, with the same sample
+and point counts; the ranks' shares of a sharded frame; one launch a round, no plain
 round; the kernel's device time under the spp_march span in a profiled frame.
 Each test skips without a card. The file imports torch, numpy and
 ngp_tpu_torch only, so on a machine with a card (where jax is not installed)
@@ -29,11 +29,12 @@ from ngp_tpu_torch import Testbed
 from ngp_tpu_torch.data.synthetic import field_sigma_rgb
 from ngp_tpu_torch.models.ngp import NGPModel
 from ngp_tpu_torch.render import march as t_march
-from ngp_tpu_torch.render import renderer as t_renderer
-from ngp_tpu_torch.render.renderer import RENDER_MODES
+from ngp_tpu_torch.render.renderer import RENDER_MODES, camera_rays
 from ngp_tpu_torch.sampling.lattice import CHUNK
 from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.config import SQRT3, SamplerConfig
+from ngp_tpu_torch.utils.qmc import ld_random_pixel_offset
+from planned_march import planned_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -114,22 +115,24 @@ def testbed(card, request):
     gc.collect()
 
 
-def _render(tb, shape, mode, kernel: bool):
-    """A spp-1 frame of the shape through Renderer.render_frame, its march
-    the kernel or the plain path -> (out, samples, points, launches, plain
+def _render(tb, shape, mode, planned: bool = False, share=slice(None)):
+    """A spp-1 frame of the shape's pixel rays (render_frame's at spp 0):
+    the renderer's, its march the kernel, or with `planned` the tests'
+    planned march of the share -> (out, samples, points, launches, plain
     rounds)."""
     r = tb._renderer
     w, h = SHAPES[shape]
+    cam = torch.as_tensor(tb.rendering_buffer.camera_matrix, dtype=torch.float32).to("cuda")
+    o, d = camera_rays(cam, w, h, (float(w), float(w)), (0.5, 0.5), ld_random_pixel_offset(0).tolist())
     launches, plain = profiling.get("launches.render_march"), profiling.get("render.march.plain")
-    with pytest.MonkeyPatch.context() as mp:
-        if not kernel:
-            mp.setattr(t_renderer, "render_march_takes", lambda cfg, device: False)
-        else:
-            assert t_march.render_march_takes(r.config.sampler, tb.grid.occupancy.device)
-        out = r.render_frame(tb.grid.occupancy, tb.rendering_buffer.camera_matrix, (w, h), (float(w), float(w)),
-                             (0.5, 0.5), 0, mode, occ_aabb=tb.grid.occ_aabb)
+    if planned:
+        out, samples, points = planned_pass(r, tb.grid.occupancy, tb.grid.occ_aabb, o, d, cam, 0, mode, share)
+    else:
+        assert t_march.render_march_takes(r.config.sampler, o.device)
+        out = r.render_rays(tb.grid.occupancy, cam, o, d, 0, mode, occ_aabb=tb.grid.occ_aabb)
+        samples, points = r.last_frame_samples, r.last_frame_points
     torch.cuda.synchronize()
-    return (out, r.last_frame_samples, r.last_frame_points, profiling.get("launches.render_march") - launches,
+    return (out, samples, points, profiling.get("launches.render_march") - launches,
             profiling.get("render.march.plain") - plain)
 
 
@@ -170,7 +173,7 @@ def test_kernel_launches_equal_their_plain_version(testbed, shape):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_march, "render_march", both)
-        _, samples, _, _, _ = _render(tb, shape, "Shade", kernel=True)
+        _, samples, _, _, _ = _render(tb, shape, "Shade")
     if grid != "empty":
         assert len(checked) >= 2 and samples == sum(c[2] for c in checked), checked
     if grid == "capped":
@@ -187,12 +190,12 @@ class _Rounds:
         self.rounds = []
         real = renderer._composite_round
 
-        def record(acc, ids, mask, flat, pos_s, dir_s, *args):
-            ray = ids[flat // CHUNK].double()
-            rows = torch.cat([ray[:, None], (flat % CHUNK)[:, None].double(), pos_s.double(), dir_s.double()], dim=1)
-            order = torch.argsort(ids)
-            self.rounds.append((ids[order].cpu(), mask[order].cpu(), _sorted_rows(rows)))
-            return real(acc, ids, mask, flat, pos_s, dir_s, *args)
+        def record(acc, r, *args):
+            ray = r.ids[r.flat // CHUNK].double()
+            rows = torch.cat([ray[:, None], (r.flat % CHUNK)[:, None].double(), r.pos.double(), r.dirs.double()], dim=1)
+            order = torch.argsort(r.ids)
+            self.rounds.append((r.ids[order].cpu(), r.mask[order].cpu(), _sorted_rows(rows)))
+            return real(acc, r, *args)
 
         mp.setattr(renderer, "_composite_round", record)
 
@@ -204,7 +207,7 @@ def test_kernel_rounds_equal_march_round(testbed, shape):
     for kernel in (False, True):
         with pytest.MonkeyPatch.context() as mp:
             rec = _Rounds(mp, tb._renderer)
-            _, _, _, launches, plain = _render(tb, shape, "Shade", kernel)
+            _, _, _, launches, plain = _render(tb, shape, "Shade", planned=not kernel)
         seen[kernel] = rec.rounds
         if kernel:
             # one launch a round and the one that finds every ray ended
@@ -223,8 +226,8 @@ def test_kernel_rounds_equal_march_round(testbed, shape):
 def test_kernel_frames_equal_the_plain_path(testbed, mode):
     grid, tb = testbed
     for shape in sorted(SHAPES):
-        want, samples, points, _, _ = _render(tb, shape, mode, kernel=False)
-        got, k_samples, k_points, launches, plain = _render(tb, shape, mode, kernel=True)
+        want, samples, points, _, _ = _render(tb, shape, mode, planned=True)
+        got, k_samples, k_points, launches, plain = _render(tb, shape, mode)
         assert torch.equal(got, want), (grid, mode, shape, float((got - want).abs().max()))
         assert (k_samples, k_points) == (samples, points), (grid, mode, shape)
         assert plain == 0
@@ -244,28 +247,20 @@ class _Rank:
 
 
 def test_kernel_ray_subsets_equal_the_plain_path(testbed):
-    """Each of 3 ranks' frames against the plain path given the same share:
+    """Each of 3 ranks' frames against the planned march of the same share:
     the kernel path shares the hit rays (every size-th from the rank on),
-    the plain path the rays its coarse pass keeps, so the plain frame here
-    marches the rank's share of the hit rays. The frames are bit-equal, and
-    the shares' samples add up to the whole frame's."""
+    and the planned march here marches the rank's share of the hit rays.
+    The frames are bit-equal, and the shares' samples add up to the whole
+    frame's."""
     grid, tb = testbed
     r = tb._renderer
-    _, samples, _, _, _ = _render(tb, "orbit", "Shade", kernel=False)
-    real = t_renderer.Renderer._kept_segments
+    _, samples, _, _, _ = _render(tb, "orbit", "Shade", planned=True)
     shares = []
     for rank in range(3):
-
-        def kept(self, occupancy, o, d, t0, ids, w0, n_seg, s0, n_rounds, limit=None, n_lat=None, rank=rank):
-            sel = slice(rank, None, 3)
-            return real(self, occupancy, o, d, t0, ids[sel], w0[sel], n_seg, s0[sel], n_rounds, limit, n_lat)
-
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(t_renderer.Renderer, "_kept_segments", kept)
-            want, s_want, _, _, _ = _render(tb, "orbit", "Shade", kernel=False)
+        want, s_want, _, _, _ = _render(tb, "orbit", "Shade", planned=True, share=slice(rank, None, 3))
         try:
             r.mesh = _Rank(rank, 3)
-            out, s, _, _, plain = _render(tb, "orbit", "Shade", kernel=True)
+            out, s, _, _, plain = _render(tb, "orbit", "Shade")
             assert plain == 0
         finally:
             r.mesh = None
@@ -300,7 +295,7 @@ def test_march_kernel_counts_under_the_march_span(testbed):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, _, launches, _ = _render(tb, "small", "Shade", kernel=True)
+        _, _, _, launches, _ = _render(tb, "small", "Shade")
         torch.cuda.synchronize()
     events = prof.events()
     kernel_us = sum(e.time_range.elapsed_us() for e in events

@@ -1,12 +1,14 @@
-"""The spp-1 renderer's march kernel (render/march.py, csrc/render_march.cu)
-off the card: which frames render_march_takes gives it, and its per-frame loop
-FrameMarch run on the CPU through render_march_plain (the kernel's plain
-version, with its interface) against the renderer's plain march
-(_kept_segments, segment_plan, march_round): every round's samples, whole
-frames in all seven modes bit for bit with the same sample and point counts,
-at a sample cap that cuts rounds and with densities that stop rays early,
-and the ranks' shares of a sharded frame. A CPU frame takes the plain path
-and launches nothing. torch only."""
+"""The spp-1 renderer's march (render/march.py) off the card: which frames
+render_march_takes gives the kernel (csrc/render_march.cu), and the CPU
+frame, which marches through FrameMarch over render_march_plain (the
+kernel's plain version, with its interface), against the tests' planned
+march (tests/planned_march.py: segment_plan, march_round): every round's
+samples, whole frames in all seven modes bit for bit with the same sample
+and point counts, at a sample cap that cuts rounds and with densities that
+stop rays early, and the ranks' shares of a sharded frame. A CPU frame
+launches no kernel and counts no plain round. On the cone lattice the pass
+marches through ConeMarch, whose rounds take only rays still above the
+transmittance threshold. torch only."""
 
 import dataclasses
 
@@ -17,11 +19,11 @@ import torch
 from ngp_tpu_torch import Testbed
 from ngp_tpu_torch.models.ngp import NGPModel
 from ngp_tpu_torch.render import march as t_march
-from ngp_tpu_torch.render import renderer as t_renderer
 from ngp_tpu_torch.render.renderer import RENDER_MODES, camera_rays
-from ngp_tpu_torch.sampling.lattice import CHUNK, packed_march_supported
+from ngp_tpu_torch.sampling.lattice import CHUNK
 from ngp_tpu_torch.utils import profiling
 from ngp_tpu_torch.utils.config import SQRT3, NGPConfig, SamplerConfig
+from planned_march import planned_pass
 
 torch.set_num_threads(2)
 
@@ -138,31 +140,29 @@ def scene(request):
     return request.param, tb, cam, o, d
 
 
-def _render(tb, cam, o, d, mode, kernel: bool, spp: int = 0):
-    """A spp-1 pass of the rays: the plain path, or with `kernel` the frame
-    march through render_march_plain. -> (out, samples, points, syncs)."""
+def _render(tb, cam, o, d, mode, planned: bool = False, share=slice(None), spp: int = 0):
+    """A spp-1 pass of the rays: the renderer's (FrameMarch over
+    render_march_plain), or with `planned` the tests' planned march of the
+    share. -> (out, samples, points, syncs)."""
     r = tb._renderer
-    take = t_renderer.render_march_takes
+    assert not t_march.render_march_takes(r.config.sampler, o.device)
     syncs = profiling.get("render.host_syncs")
-    with pytest.MonkeyPatch.context() as mp:
-        if kernel:
-            mp.setattr(t_renderer, "render_march_takes", lambda cfg, device: packed_march_supported(cfg))
-            mp.setattr(t_march, "render_march", t_march.render_march_plain)
-        else:
-            assert not take(r.config.sampler, o.device)
-        out = r.render_rays(tb.grid.occupancy, cam, o, d, spp, mode, occ_aabb=tb.grid.occ_aabb)
+    if planned:
+        out, samples, points = planned_pass(r, tb.grid.occupancy, tb.grid.occ_aabb, o, d, cam, spp, mode, share)
+        return out, samples, points, 0
+    out = r.render_rays(tb.grid.occupancy, cam, o, d, spp, mode, occ_aabb=tb.grid.occ_aabb)
     return out, r.last_frame_samples, r.last_frame_points, profiling.get("render.host_syncs") - syncs
 
 
 @pytest.mark.parametrize("mode", RENDER_MODES)
 def test_frame_march_frames_equal_the_plain_path(scene, mode):
     name, tb, cam, o, d = scene
-    want, samples, points, plain_syncs = _render(tb, cam, o, d, mode, kernel=False)
-    got, k_samples, k_points, syncs = _render(tb, cam, o, d, mode, kernel=True)
+    want, samples, points, _ = _render(tb, cam, o, d, mode, planned=True)
+    got, k_samples, k_points, syncs = _render(tb, cam, o, d, mode)
     assert torch.equal(got, want), (name, mode, float((got - want).abs().max()))
     assert (k_samples, k_points) == (samples, points)
     assert samples > 0 and want[:, 3].max() > 0.0
-    assert syncs < plain_syncs
+    assert syncs > 0
 
 
 class _Rounds:
@@ -173,12 +173,12 @@ class _Rounds:
         self.rounds = []
         real = renderer._composite_round
 
-        def record(acc, ids, mask, flat, pos_s, dir_s, *args):
-            ray = ids[flat // CHUNK]
-            rows = torch.cat([ray[:, None].double(), (flat % CHUNK)[:, None].double(), pos_s.double(), dir_s.double()], 1)
-            order = torch.argsort(ids)
-            self.rounds.append((ids[order], mask[order], rows[np.lexsort(rows.numpy().T[::-1])]))
-            return real(acc, ids, mask, flat, pos_s, dir_s, *args)
+        def record(acc, r, *args):
+            ray = r.ids[r.flat // CHUNK]
+            rows = torch.cat([ray[:, None].double(), (r.flat % CHUNK)[:, None].double(), r.pos.double(), r.dirs.double()], 1)
+            order = torch.argsort(r.ids)
+            self.rounds.append((r.ids[order], r.mask[order], rows[np.lexsort(rows.numpy().T[::-1])]))
+            return real(acc, r, *args)
 
         mp.setattr(renderer, "_composite_round", record)
 
@@ -186,13 +186,13 @@ class _Rounds:
 def test_frame_march_rounds_equal_march_round(scene):
     name, tb, cam, o, d = scene
     seen = {}
-    for kernel in (False, True):
+    for planned in (True, False):
         with pytest.MonkeyPatch.context() as mp:
             rec = _Rounds(mp, tb._renderer)
-            _render(tb, cam, o, d, "Shade", kernel)
-        seen[kernel] = rec.rounds
-    assert len(seen[True]) == len(seen[False]) > 0, name
-    for k, ((ids, mask, rows), (k_ids, k_mask, k_rows)) in enumerate(zip(seen[False], seen[True])):
+            _render(tb, cam, o, d, "Shade", planned)
+        seen[planned] = rec.rounds
+    assert len(seen[False]) == len(seen[True]) > 0, name
+    for k, ((ids, mask, rows), (k_ids, k_mask, k_rows)) in enumerate(zip(seen[True], seen[False])):
         assert torch.equal(k_ids, ids), (name, k)
         assert torch.equal(k_mask, mask), (name, k)
         assert torch.equal(k_rows, rows), (name, k)  # positions and directions to the bit
@@ -210,28 +210,20 @@ class _Rank:
 
 
 def test_frame_march_shares_equal_the_plain_path(scene):
-    """Each of 3 ranks' frames against the plain path given the same share:
-    the kernel path shares the hit rays (every size-th from the rank on),
-    the plain path the rays its coarse pass keeps, so the plain frame here
-    marches the rank's share of the hit rays. The frames are bit-equal, and
-    the shares' samples add up to the whole frame's."""
+    """Each of 3 ranks' frames against the planned march of the same share:
+    the renderer shares the hit rays (every size-th from the rank on), and
+    the planned march here marches the rank's share of the hit rays. The
+    frames are bit-equal, and the shares' samples add up to the whole
+    frame's."""
     name, tb, cam, o, d = scene
     r = tb._renderer
-    _, samples, _, _ = _render(tb, cam, o, d, "Shade", kernel=False)
-    real = t_renderer.Renderer._kept_segments
+    _, samples, _, _ = _render(tb, cam, o, d, "Shade", planned=True)
     shares = []
     for rank in range(3):
-
-        def kept(self, occupancy, o, d, t0, ids, w0, n_seg, s0, n_rounds, limit=None, n_lat=None, rank=rank):
-            sel = slice(rank, None, 3)
-            return real(self, occupancy, o, d, t0, ids[sel], w0[sel], n_seg, s0[sel], n_rounds, limit, n_lat)
-
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(t_renderer.Renderer, "_kept_segments", kept)
-            want, s_want, _, _ = _render(tb, cam, o, d, "Shade", kernel=False)
+        want, s_want, _, _ = _render(tb, cam, o, d, "Shade", planned=True, share=slice(rank, None, 3))
         try:
             r.mesh = _Rank(rank, 3)
-            out, s, _, _ = _render(tb, cam, o, d, "Shade", kernel=True)
+            out, s, _, _ = _render(tb, cam, o, d, "Shade")
         finally:
             r.mesh = None
         assert torch.equal(out, want), (name, rank, float((out - want).abs().max()))
@@ -241,11 +233,44 @@ def test_frame_march_shares_equal_the_plain_path(scene):
 
 
 def test_cpu_frame_takes_the_plain_path(scene):
+    """A CPU frame marches through FrameMarch, one plain launch and one
+    readback a round: no kernel launch, and the plain rounds are counted on
+    the card only."""
     name, tb, cam, o, d = scene
-    launches, plain = profiling.get("launches.render_march"), profiling.get("render.march.plain")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_renderer, "FrameMarch", None)  # the kernel path would fail
-        out, samples, _, _ = _render(tb, cam, o, d, "Shade", kernel=False)
+    before = profiling.counters()
+    out, samples, _, _ = _render(tb, cam, o, d, "Shade")
+    after = profiling.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
     assert samples > 0 and out[:, 3].max() > 0.0
-    # the plain rounds are counted on the card only
-    assert profiling.get("launches.render_march") == launches and profiling.get("render.march.plain") == plain
+    assert delta.get("launches.render_march", 0) == delta.get("render.march.plain", 0) == 0
+    assert delta.get("render.host_syncs.march", 0) > 0
+    assert delta.get("render.host_syncs.samples", 0) == delta.get("render.host_syncs.live_rays", 0) == 0
+
+
+def test_cone_rounds_take_only_rays_above_the_threshold(scene):
+    """The scene on the cone lattice: every round ConeMarch hands the
+    composite holds only rays whose transmittance, before it, is at or above
+    the threshold (the rounds before stopped the others), and the opaque
+    scene stops rays that way."""
+    name, tb, cam, o, d = scene
+    r = tb._renderer
+    cfg = r.config
+    thresh = cfg.render.transmittance_threshold
+    r.config = dataclasses.replace(cfg, sampler=dataclasses.replace(cfg.sampler, cone_angle_constant=0.004))
+    seen = []
+    real = r._composite_round
+
+    def record(acc, rd, *args):
+        seen.append(acc[2][rd.ids].clone())
+        return real(acc, rd, *args)
+
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(r, "_composite_round", record)
+            out = r.render_rays(tb.grid.occupancy, cam, o, d, 0, "Shade", occ_aabb=tb.grid.occ_aabb)
+    finally:
+        r.config = cfg
+    assert len(seen) > 1 and out[:, 3].max() > 0.0, name
+    assert all(bool((tr >= thresh).all()) for tr in seen), name
+    if name == "opaque":
+        assert float(out[:, 3].max()) > 1.0 - thresh, name  # some ray turned opaque, so the stop ended it

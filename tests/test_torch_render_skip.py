@@ -12,6 +12,7 @@ import torch
 from ngp_tpu.testbed import Testbed as JTestbed
 from ngp_tpu_torch import Testbed as TTestbed
 from ngp_tpu_torch.grid.occupancy import occupied_aabb, packed_neighborhood
+from ngp_tpu_torch.render import march as t_march
 from ngp_tpu_torch.render import renderer as t_renderer
 from ngp_tpu_torch.sampling import lattice as t_lattice
 from ngp_tpu_torch.utils.aabb import AABB
@@ -65,14 +66,18 @@ def _camera(theta, radius=1.2):
 
 
 class _Recorder:
-    """Wraps the renderer's march functions and keeps (d, t, pos) of every
-    point they mark as sampled (the lookahead segment aside), with the
-    ordinal where the march reports it."""
+    """Wraps the marches and keeps (d, t, pos) of every point they mark as
+    sampled (the lookahead segment aside), with the ordinal where the march
+    reports it: the spp-8 frame's march_round, and the spp-1 pass's rounds
+    in render/march.py, a launch of render_march_plain (its samples' rows,
+    their t from the launch's segment_points) or a march_chunk round."""
 
     def __init__(self, monkeypatch):
         self.rows = []
-        for name in ("march_round", "march_chunk"):
-            monkeypatch.setattr(t_renderer, name, self._wrap(getattr(t_renderer, name)))
+        self.mp = monkeypatch
+        for mod, name in ((t_renderer, "march_round"), (t_march, "march_chunk")):
+            monkeypatch.setattr(mod, name, self._wrap(getattr(mod, name)))
+        monkeypatch.setattr(t_march, "render_march_plain", self._launch(t_march.render_march_plain))
 
     def _wrap(self, fn):
         def run(cfg, aabb, occupancy, *args, **kw):
@@ -85,6 +90,27 @@ class _Recorder:
             return out
 
         run.__name__ = fn.__name__
+        return run
+
+    def _launch(self, fn):
+        points = t_march.segment_points
+
+        def run(cfg, occupancy, pooled, a, n_in, first, thresh):
+            seen = []
+
+            def tested(*args, **kw):
+                seen.append(points(*args, **kw))
+                return seen[-1]
+
+            self.mp.setattr(t_march, "segment_points", tested)
+            fn(cfg, occupancy, pooled, a, n_in, first, thresh)
+            self.mp.setattr(t_march, "segment_points", points)
+            n_rows = int(a.counts[1])
+            if n_rows:
+                flat = a.flat[:n_rows]
+                row, col = flat // t_lattice.CHUNK, flat % t_lattice.CHUNK
+                self.rows.append((a.d[a.list_out[row]], seen[0][2][row, col], a.pos[:n_rows].clone(), None))
+
         return run
 
     def table(self):
