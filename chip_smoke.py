@@ -290,6 +290,7 @@ PROFILE_KERNELS = {
     "train_march": (("train_march_kernel",), ("train_march_kernel",)),
     "train_emit": (("train_emit_kernel",), ("train_emit_kernel",)),
     "render_march": (("render_march_kernel",), ("render_march_kernel",)),
+    "render_cover_march": (("render_cover_march_kernel",), ("render_cover_march_kernel",)),
 }
 # (memory bytes/s, bf16 dense tensor FLOP/s, fp32 FLOP/s outside the tensor
 # cores) by card, from NVIDIA's data sheets
@@ -2011,6 +2012,93 @@ def phase_render_march(tb, bw, fp32_flops) -> dict:
 
 
 @timed
+def phase_render_cover_march(tb, bw, fp32_flops) -> dict:
+    """The spp-n Shade frame's cover march kernel (render_cover_march) in the
+    800x800 Shade spp-8 view of the last ring pose, the serve path's protocol
+    frame: each launch against render_cover_march_plain on copies of its
+    inputs and state (the live list, the mask, adj, carried-flag and t rows,
+    every row to evaluate, the listed rays' taken, round and carried state
+    and the counters, all equal and in the same order), the frame through
+    the kernel against the frame through the plain version (equal, with the
+    same samples and points), its launches a frame and each launch's rays,
+    rows and device ms (the profiler's) against the bytes the launches must
+    move: a listed ray's id and state (17 B) and its P transmittances; for a
+    marched ray its rays (40 B), state written, slot, its mask and adj rows,
+    its 2 flags and its t row; 32 B a row; the packed words and the pooled
+    grid once a launch. Beside them the spp_march span's device ms in both
+    frames and a plain round's."""
+    from ngp_tpu_torch.render import march as rm
+    from ngp_tpu_torch.render import renderer as rd
+
+    w, h = FRAME
+    tb.set_nerf_camera_matrix(ring_pose(POSES[-1]))
+    r, scfg = tb._renderer, tb.config.sampler
+    cam = torch.as_tensor(tb.rendering_buffer.camera_matrix, dtype=torch.float32, device="cuda")
+    o, d = rd.camera_rays(cam, w, h, (float(h), float(h)), (0.5, 0.5), (0.5, 0.5))
+    take, real = rm.cover_march_takes, rm.render_cover_march
+    if not take(scfg, o.device):
+        raise SystemExit("base.json's frame on the card does not take render_cover_march")
+    launches, mismatch = [], []
+
+    def frame(kernel: bool):
+        rm.cover_march_takes = take if kernel else (lambda cfg, device: False)
+        try:
+            out = r.render_rays(tb.grid.occupancy, cam, o, d, 0, "Shade", occ_aabb=tb.grid.occ_aabb, n_spp=PROTOCOL_SPP)
+        finally:
+            rm.cover_march_takes = take
+        return out, r.last_frame_samples, r.last_frame_points
+
+    def both(cfg, occupancy, pooled, packed, a, n_in, first, n_rounds, thresh):
+        b = rm.CoverLaunch(*(t.clone() for t in a))
+        rm.render_cover_march_plain(cfg, occupancy, pooled, packed, b, n_in, first, n_rounds, thresh)
+        real(cfg, occupancy, pooled, packed, a, n_in, first, n_rounds, thresh)
+        n_live, n_rows = a.counts.tolist()
+        listed = a.list_in[:n_in]
+        same = b.counts.tolist() == [n_live, n_rows]
+        for name, n in (("list_out", n_live), ("mask", n_live), ("adj", n_live), ("carry", n_live), ("t", n_live),
+                        ("flat", n_rows), ("pos", n_rows), ("dirs", n_rows)):
+            same = same and torch.equal(getattr(a, name)[:n], getattr(b, name)[:n])
+        for name in ("taken", "rnd", "carried"):
+            same = same and torch.equal(getattr(a, name)[listed], getattr(b, name)[listed])
+        if not same:
+            mismatch.append(len(launches))
+        launches.append((n_in, n_live, n_rows, a.trans.shape[-1]))
+
+    rm.render_cover_march = both
+    try:
+        got = frame(True)
+    finally:
+        rm.render_cover_march = real
+    want = frame(False)
+    equal = not mismatch and bool(torch.equal(got[0], want[0])) and got[1:] == want[1:]
+    g = scfg.grid_size
+    grids = 4 * g**3 + scfg.n_cascades * (g // 8) ** 3
+    launch_bytes = [n_in * (8 + 9 + 4 * p) + live * (40 + 9 + 8 + 2 * rm.CHUNK + 2 + 4 * rm.CHUNK) + 32 * rows + grids
+                    for n_in, live, rows, p in launches]
+    n_bytes = sum(launch_bytes)
+    ms = kernel_launch_ms(lambda: frame(True), "render_cover_march_kernel")
+    spans = {}
+    for label, kernel in (("kernel", True), ("plain", False)):
+        _, by = device_profile(lambda: frame(kernel), labels=("spp_march",))
+        spans[label] = by["spp_march"]["kernel_ms"]
+    n_rounds = sum(1 for _, live, _, _ in launches if live > 0)
+    out = {"equal": equal, "mismatched_launches": mismatch, "samples": got[1], "points": got[2],
+           "launches_per_frame": len(launches), "rounds": n_rounds,
+           "launches": [{"listed": a, "live": b, "rows": c, "ms": t} for (a, b, c, _), t in zip(launches, ms)],
+           "ms": float(np.median(ms)), "frame_kernel_ms": float(sum(ms)),
+           **bound(n_bytes / len(launches), 0, bw, fp32_flops),
+           "frame_bound_ms": n_bytes / bw * 1e3, "spp_march_ms": spans, "plain_round_ms": spans["plain"] / max(n_rounds, 1)}
+    print(f"render_cover_march {w}x{h} Shade spp {PROTOCOL_SPP}: kernel == plain (launch by launch and the frame): "
+          f"{equal}; {len(launches)} launches ({n_rounds} rounds), {sum(ms):.3f} ms of kernel a frame against a "
+          f"{out['frame_bound_ms']:.4f} ms bound ({n_bytes / 1e6:.1f} MB); spp_march {spans['kernel']:.2f} ms a frame "
+          f"through the kernel, {spans['plain']:.2f} ms plain ({out['plain_round_ms']:.2f} a round); launches "
+          f"(listed, live, rows, ms) {[(a, b, c, round(t, 4)) for (a, b, c, _), t in zip(launches, ms)]} ({card_line()})")
+    if not equal:
+        raise SystemExit(f"the cover march kernel disagrees with its plain version (launches {mismatch})")
+    return out
+
+
+@timed
 def phase_march_reference(Testbed, NGPModel) -> dict:
     """The march alone, card vs CPU: a transparent model (the density head's
     output column <= 0 under a ReLU density activation, so sigma = 0 and no
@@ -2709,6 +2797,7 @@ def main():
     # march card vs CPU on the same rays
     skip = phase_skip(tb, frames)
     render_march = phase_render_march(tb, bw, fp32_flops)
+    cover_march = phase_render_cover_march(tb, bw, fp32_flops)
     del tb
     reference = phase_reference(Testbed, NGPModel)
     protocol["reference"] = phase_protocol_reference(Testbed, NGPModel)
@@ -2836,10 +2925,20 @@ def main():
     rmk["per_frame"] = {k: render_march[k] for k in ("launches_per_frame", "rounds", "frame_kernel_ms", "frame_bound_ms",
                                                      "spp_march_ms")}
     rmk["launches_by_path"] = by_path("render_march")
-    kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels, rmk]
+    rck = kernel_entry("render_cover_march", "ngp_tpu_torch/csrc/render_cover_march.cu",
+                       "none: XLA code of ngp_tpu/render/renderer.py (_coarse_pass, the jitter_cover march) and "
+                       "ngp_tpu/sampling/lattice.py", serve_launches["render_cover_march"],
+                       0.0 if cover_march["equal"] else float("inf"),
+                       {**cover_march, "plain_ms": cover_march["plain_round_ms"], "library_ms": None})
+    rck["per_frame"] = {k: cover_march[k] for k in ("launches_per_frame", "rounds", "frame_kernel_ms", "frame_bound_ms",
+                                                    "spp_march_ms")}
+    rck["launches_by_path"] = by_path("render_cover_march")
+    kernels = [fwd, bwd, adam, hfwd, hbwd, *batch_kernels, rmk, rck]
     for k in kernels:
         k["ms_in_frame"] = profile["in_path"][k["name"]]["ms_per_launch"]
         k["ms_in_step"] = train["profile"]["in_path"][k["name"]]["ms_per_launch"]
+    # the cover march runs in the Shade spp-8 frame, not the profiled spp-1 one
+    rck["ms_in_frame"] = protocol["profile_shade"]["in_path"]["render_cover_march"]["ms_per_launch"]
     fwd["ptxas"] = ptxas.get("fused_mlp_fwd", {})
     bwd["ptxas"] = ptxas.get("fused_mlp_bwd", {})
     # the variants' instantiations, each with the launches of its own paths

@@ -1,7 +1,8 @@
 // The march lattice's per-point arithmetic on the card, shared by the training
-// batch's march (train_batch.cu) and the spp-1 renderer's march
-// (render_march.cu): a lattice point's t and position, its box test, its
-// occupancy, and the coarse pass's segment test. Each helper is a template on
+// batch's march (train_batch.cu), the spp-1 renderer's march
+// (render_march.cu) and the spp-n frame's cover march (render_cover_march.cu):
+// a lattice point's t and position, its box test, its occupancy, the cover
+// test of its segment, and the coarse pass's segment test. Each helper is a template on
 // its parameter struct P, which holds the fields it reads under these names:
 //   occ (n_cascades, G, G, G) bytes, index ((c * G + x) * G + y) * G + z;
 //   pooled (n_cascades, P, P, P) the halo-pooled super-grid; grid, pooled_res,
@@ -159,6 +160,56 @@ __device__ __forceinline__ bool fine_point(const P& a, const float o[3], const f
     mip = MODE == CONE ? cone_mip(a, p, t) : march_mip(a, p);
     return inside && a.occ[grid_index(p, mip, a.grid)] != 0;
   }
+}
+
+// The jitter-cover march's test of the lane's point of lattice ordinal k on
+// the PACKED lattice (sampling/lattice.segment_points with jitter_cover, lanes
+// 8g .. 8g + 7 holding one segment, every lane of the warp calling): its
+// position p, whether p or the end of its segment p + d dt lies in the box
+// (`inside`), and whether it is a cover point: in the box, and some cell of
+// the box of cells between cell(p) and cell(p + d dt) occupied, each clamped
+// to within one cell of cm, the cell of the segment's midpoint, and read from
+// cm's packed 3^3 word (grid/occupancy.packed_cover_lookup). P holds `packed`,
+// the (G^3,) int32 words of grid/occupancy.packed_neighborhood.
+template <class P>
+__device__ __forceinline__ bool cover_point(const P& a, const float o[3], const float d[3], float st, long long k,
+                                            bool& inside, float (&p)[3]) {
+  const float t = fma_once(__ll2float_rn(k), a.dt, st);
+  bool in_p = true, in_e = true;
+  float e[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    p[j] = fma_once(t, d[j], o[j]);
+    e[j] = fma_once(d[j], a.dt, p[j]);
+    in_p = in_p && p[j] >= a.lo[j] && p[j] <= a.hi[j];
+    in_e = in_e && e[j] >= a.lo[j] && e[j] <= a.hi[j];
+  }
+  inside = in_p || in_e;
+  const int base = (threadIdx.x & 31) & ~(SEG - 1);
+  const float g = (float)a.grid;
+  int cm[3];
+  unsigned span[3];  // per axis, bits lo..hi of the offsets {0, 1, 2} from cm - 1
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float p3 = __shfl_sync(FULL, p[j], base + 3);
+    const float p4 = __shfl_sync(FULL, p[j], base + 4);
+    cm[j] = cell_of(__fmul_rn(0.5f, __fadd_rn(p3, p4)), g, a.grid);
+    const int cp = cell_of(p[j], g, a.grid);
+    const int cq = cell_of(e[j], g, a.grid);
+    const int lo = clampi(min(cp, cq) - cm[j], -1, 1) + 1;
+    const int hi = clampi(max(cp, cq) - cm[j], -1, 1) + 1;
+    span[j] = ((1u << (hi + 1)) - 1u) & ~((1u << lo) - 1u);
+  }
+  unsigned yz = 0u, box = 0u;
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    if ((span[1] >> q) & 1u) yz |= span[2] << (3 * q);
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    if ((span[0] >> q) & 1u) box |= yz << (9 * q);
+  const long long G = a.grid;
+  const unsigned word = (unsigned)a.packed[(cm[0] * G + cm[1]) * G + cm[2]];
+  return inside && (word & box) != 0u;
 }
 
 }  // namespace lattice

@@ -20,7 +20,7 @@ from ngp_tpu_torch.utils import profiling
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "ngp_tpu_torch"
 SOURCES = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd", "train_batch",
-           "render_march")
+           "render_march", "render_cover_march")
 
 BUILD_LOGS: dict = {}  # name -> nvcc / ptxas output of the build this process made
 _LIBS: dict = {}
@@ -84,7 +84,7 @@ def library(name: str) -> ctypes.CDLL:
 
 # the kernels whose wrappers count their launches (profiling counter "launches.<name>")
 LAUNCH_COUNTERS = ("fused_mlp_fwd", "fused_mlp_bwd", "adam_ema", "hash_encode_fwd", "hash_encode_bwd_stochastic",
-                   "hash_encode_bwd_exact", "train_march", "train_emit", "render_march")
+                   "hash_encode_bwd_exact", "train_march", "train_emit", "render_march", "render_cover_march")
 
 
 def launch_counts() -> dict:

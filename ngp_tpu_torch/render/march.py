@@ -28,6 +28,24 @@ On the cone lattice (dt grows with t), ConeMarch: every ray that meets the
 occupied box marches the whole lattice from ordinal 0, CHUNK points a round
 (march_chunk, point by point), its samples compacted on the host; a card's
 rounds count in render.march.plain.
+
+The spp-n Shade frame with one shared evaluation a cover point
+(Renderer._composite_shared) marches each block of its hit rays through
+CoverMarch: one launch a round, each launch taking the live rays of the last
+one, dropping those that ended (every pass's transmittance under
+transmittance_threshold, the step cap, the box exit, no further round below
+the ray's limit with a kept coarse segment), marching every other one to its
+next round that keeps a segment (rounds aligned at the ray's k0), with the
+cover test of each point's segment and a lookahead segment, and writing the
+rows the shared evaluation takes (the samples, the lerp partner at a round's
+end, less the point the last round carried in) with the dense (L, 128) mask,
+lerp partners and t and the compacted live list. The host reads one counter
+pair a round (live rays, rows) at sync site `cover_march`. A launch is csrc/render_cover_march.cu's render_cover_march
+where cover_march_takes holds (a card frame on a jitter-cover lattice), else
+render_cover_march_plain, its plain version in PyTorch with the same
+interface (the CPU's march; a card's counted in render.march.plain). The
+other spp-n frames (Renderer._composite_passes) march the segment plan's
+rounds (segment_plan, march_round) themselves.
 """
 
 import ctypes
@@ -42,6 +60,7 @@ from ngp_tpu_torch.sampling.lattice import (
     CHUNK,
     SEG,
     coarse_segment_mask,
+    jitter_cover_supported,
     march_chunk,
     n_lattice_points,
     packed_march_supported,
@@ -55,6 +74,10 @@ from ngp_tpu_torch.utils.config import SamplerConfig
 
 RANGE_SEGS = CHUNK // SEG  # segments of one round of the fine march (128 lattice points)
 INT32_MAX = (1 << 31) - 1
+# ngp_tpu composites a shared frame in rounds of D occupied samples a ray and
+# lerps to the point itself at each round's last sample; on tiles of at most
+# 1024 rays (small frames) every round is its last stage's D = min(256, W)
+SHARE_ROUND = 256
 
 
 def frame_geometry(cfg, o: torch.Tensor, d: torch.Tensor, occ_aabb: torch.Tensor):
@@ -91,8 +114,12 @@ def render_march_takes(cfg: SamplerConfig, device) -> bool:
     card, the PACKED lattice (packed_march_supported: constant dt,
     aabb_scale 1 and one packed word a segment), and ordinals, rounds and
     sample counts within the kernel's int32 indices."""
-    return (torch.device(device).type == "cuda" and packed_march_supported(cfg)
-            and n_lattice_points(cfg) + CHUNK <= INT32_MAX and cfg.maximum_marching_steps <= INT32_MAX)
+    return torch.device(device).type == "cuda" and packed_march_supported(cfg) and _int32_ranges(cfg)
+
+
+def _int32_ranges(cfg: SamplerConfig) -> bool:
+    """Ordinals, rounds and sample counts within the march kernels' int32 indices."""
+    return n_lattice_points(cfg) + CHUNK <= INT32_MAX and cfg.maximum_marching_steps <= INT32_MAX
 
 
 class Launch(NamedTuple):
@@ -136,6 +163,36 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+def _check(dev, specs, n_in: int, R: int):
+    """Raise unless every (name, tensor, dtype, shape or None) of `specs` is
+    contiguous on `dev` with that dtype and shape, and 0 < n_in <= R."""
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype or (shape is not None and tuple(t.shape) != shape) or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous {dtype} of shape {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 0 < n_in <= R:
+        raise ValueError(f"n_in {n_in} outside the list's 1..{R}")
+
+
+def _coarse_constants(cfg: SamplerConfig, pooled) -> tuple:
+    """The march kernels' grid and coarse-pass arguments: grid, pooled_res,
+    the static mip and the next, dt, and the mip edge's band and the scene
+    cube's cut as coarse_segment_mask's float32 tensors see them (train_march's)."""
+    dt = float(cfg.min_cone_stepsize)
+    g, nc = cfg.grid_size, cfg.n_cascades
+    mip_lo = max(static_dt_mip(dt, g, nc), 0)
+    bound = np.array([(126 + mip_lo) << 23], np.int32).view(np.float32)[0]
+    near = np.float32(bound - np.float32(16.0 * dt))
+    cut = np.float32(0.5 * float(cfg.aabb_scale) + 8.0 * dt)
+    return g, pooled.shape[-1], mip_lo, min(mip_lo + 1, nc - 1), _f32(dt), float(near), float(cut)
+
+
+def _box(cfg: SamplerConfig) -> list:
+    """The scene box's lo and hi corners as float32 values."""
+    aabb = AABB.scene(cfg.aabb_scale)
+    return [_f32(v) for v in (*aabb.lo, *aabb.hi)]
+
+
 def render_march(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, first: bool, thresh: float):
     """The kernel (csrc/render_march.cu) on a's tensors, on the card: one
     round of the rays a.list_in[:n_in]; `first` for the frame's first launch.
@@ -145,7 +202,7 @@ def render_march(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, fi
     if dev.type != "cuda" or not render_march_takes(cfg, dev):
         raise ValueError("render_march takes CUDA tensors on the PACKED lattice")
     g = cfg.grid_size
-    for name, t, dtype, shape in (
+    _check(dev, (
         ("occupancy", occupancy, torch.bool, (cfg.n_cascades, g, g, g)), ("pooled", pooled, torch.bool, None),
         ("o", a.o, torch.float32, (N, 3)), ("d", a.d, torch.float32, (N, 3)), ("t0", a.t0, torch.float32, (N,)),
         ("startt", a.startt, torch.float32, (N,)), ("k0", a.k0, torch.int64, (N,)),
@@ -154,22 +211,7 @@ def render_march(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, fi
         ("list_out", a.list_out, torch.int64, (R,)), ("mask", a.mask, torch.bool, (R, CHUNK)),
         ("flat", a.flat, torch.int64, (R * CHUNK,)), ("pos", a.pos, torch.float32, (R * CHUNK, 3)),
         ("dirs", a.dirs, torch.float32, (R * CHUNK, 3)), ("counts", a.counts, torch.int64, (3,)),
-    ):
-        if t.dtype != dtype or (shape is not None and tuple(t.shape) != shape) or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name} must be contiguous {dtype} of shape {shape} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if not 0 < n_in <= R:
-        raise ValueError(f"n_in {n_in} outside the list's 1..{R}")
-    # the coarse pass's constants as coarse_segment_mask's float32 tensors
-    # see them (train_march's): the static mip and the next, the mip edge's
-    # band and the scene cube's cut
-    dt = float(cfg.min_cone_stepsize)
-    nc = cfg.n_cascades
-    mip_lo = max(static_dt_mip(dt, g, nc), 0)
-    bound = np.array([(126 + mip_lo) << 23], np.int32).view(np.float32)[0]
-    near = np.float32(bound - np.float32(16.0 * dt))
-    cut = np.float32(0.5 * float(cfg.aabb_scale) + 8.0 * dt)
-    aabb = AABB.scene(cfg.aabb_scale)
+    ), n_in, R)
     n_lat = n_lattice_points(cfg)
 
     def launch():
@@ -178,8 +220,7 @@ def render_march(cfg: SamplerConfig, occupancy, pooled, a: Launch, n_in: int, fi
             a.startt.data_ptr(), a.k0.data_ptr(), a.trans.data_ptr(), a.taken.data_ptr(), a.rnd.data_ptr(),
             a.n_seg.data_ptr(), a.list_in.data_ptr(), a.list_out.data_ptr(), a.mask.data_ptr(), a.flat.data_ptr(),
             a.pos.data_ptr(), a.dirs.data_ptr(), a.counts.data_ptr(), n_in, int(first), n_lat // CHUNK, n_lat,
-            cfg.maximum_marching_steps, g, pooled.shape[-1], mip_lo, min(mip_lo + 1, nc - 1), _f32(dt), float(near),
-            float(cut), _f32(thresh), *[_f32(v) for v in aabb.lo], *[_f32(v) for v in aabb.hi],
+            cfg.maximum_marching_steps, *_coarse_constants(cfg, pooled), _f32(thresh), *_box(cfg),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
@@ -281,6 +322,63 @@ class Round(NamedTuple):
     pos: torch.Tensor
     dirs: torch.Tensor
     t: torch.Tensor | None = None
+
+
+class SegmentPlan(NamedTuple):
+    """The kept coarse segments of a frame's rays: segment j of ray i holds
+    the lattice ordinals w0[i] + 8j .. w0[i] + 8j + 7 and lies in round
+    (s0[i] + j) // RANGE_SEGS; nxt[i, r] is the first round >= r that holds a
+    kept segment of ray i (n_rounds, the last column, where none does)."""
+
+    w0: torch.Tensor  # (R,) int64
+    s0: torch.Tensor  # (R,) int64
+    keep: torch.Tensor  # (R, n_seg) bool
+    nxt: torch.Tensor  # (R, n_rounds + 1) int64
+
+    def rows(self, sel) -> "SegmentPlan":
+        """The plan of the rows `sel`; a boolean mask indexes each of the
+        four tensors, a host sync each."""
+        mask = isinstance(sel, torch.Tensor) and sel.dtype == torch.bool
+        with profiling.host_sync("render", "plan_rows", 4 if mask else 0):
+            return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel])
+
+
+def segment_plan(keep, w0, s0, n_rounds: int, limit=None) -> SegmentPlan:
+    """The plan of kept segments `keep` (R, n_seg); rounds >= `limit` (R,)
+    (or n_rounds) hold nothing."""
+    R, n_seg = keep.shape
+    dev = keep.device
+    rnd = (s0[:, None] + torch.arange(n_seg, device=dev)[None, :]) // RANGE_SEGS
+    ok = keep & (rnd < (n_rounds if limit is None else limit[:, None]))
+    has = torch.zeros((R, n_rounds + 1), dtype=torch.bool, device=dev)
+    has.scatter_(1, torch.where(ok, rnd, n_rounds), ok)
+    has[:, n_rounds] = True
+    first = torch.where(has, torch.arange(n_rounds + 1, device=dev), n_rounds)
+    nxt = torch.flip(torch.cummin(torch.flip(first, [1]), dim=1).values, [1])
+    return SegmentPlan(w0, s0, keep, nxt)
+
+
+def march_round(cfg, aabb: AABB, occupancy, packed, plan: SegmentPlan, sel, rnd, o, d, startt, taken, lookahead: int = 0,
+                jitter_cover: bool = False):
+    """Round rnd (L,) of the plan's rays sel (L,): the lattice points of each
+    ray's segments in that round (RANGE_SEGS of them, then `lookahead`
+    segments of the next round), a segment that is not kept testing nothing.
+    o, d, startt and taken (the samples taken before) are the L rays'.
+    Returns (mask (L, W) of the points the ray samples, t (L, W), pos
+    (L, W, 3), idx (L, W) their lattice ordinals, exited (L,) whether a
+    tested point of the round, the lookahead aside, lay outside the box)."""
+    n_seg = plan.keep.shape[1]
+    dev = o.device
+    j = (RANGE_SEGS * rnd - plan.s0[sel])[:, None] + torch.arange(RANGE_SEGS + lookahead, device=dev)[None, :]
+    kept = (j >= 0) & (j < n_seg) & plan.keep.reshape(-1)[sel[:, None] * n_seg + j.clamp(0, n_seg - 1)]
+    idx = plan.w0[sel][:, None] + (j[:, :, None] * SEG + torch.arange(SEG, device=dev)).reshape(j.shape[0], -1)
+    valid = kept.repeat_interleave(SEG, dim=1)
+    inside, occ, t, pos = segment_points(cfg, aabb, occupancy, o, d, startt, idx, packed, jitter_cover)
+    mask = valid & inside & occ
+    m = mask.to(torch.int64)
+    mask = mask & (taken[:, None] + torch.cumsum(m, dim=1) - m < cfg.maximum_marching_steps)
+    exited = (valid & ~inside)[:, : RANGE_SEGS * SEG].any(dim=1)
+    return mask, t, pos, idx, exited
 
 
 def pass_march(cfg: SamplerConfig, occupancy, occ_aabb, o, d, t0, startt, alive, trans, thresh: float,
@@ -422,3 +520,254 @@ class ConeMarch:
             rows, cols = torch.nonzero(mask, as_tuple=True)
         self.sampled += rows.numel()
         return Round(ids, mask, rows * CHUNK + cols, pos[rows, cols], self.dirs[ids[rows]], t)
+
+
+def cover_march_takes(cfg: SamplerConfig, device) -> bool:
+    """Whether a cover-march round launches render_cover_march: tensors on
+    the card, a jitter-cover lattice (jitter_cover_supported: the PACKED
+    lattice with each point's segment within one cell of its packed word's),
+    and the kernels' int32 ranges."""
+    return torch.device(device).type == "cuda" and jitter_cover_supported(cfg) and _int32_ranges(cfg)
+
+
+class CoverLaunch(NamedTuple):
+    """One cover-march launch's tensors. A block's R rays by index in the
+    block: o, d (R, 3), t0 (R,) the unjittered march start, k0 (R,) int64
+    window starts, limit (R,) int32 the window's rounds, trans (R, P) each
+    pass's transmittance after the ray's last composited round, taken and rnd
+    (R,) int32 and carried (R,) bool, the state the launch reads (after the
+    first) and writes. The launch reads list_in[:n_in] and writes list_out,
+    mask and adj (n_in, 128) bool, carry (n_in, 2) bool (carried in, carried
+    out), t (n_in, 128) float32, flat (n_in * 129,) int64, pos and dirs
+    (n_in * 129, 3) float32 from row 0 on, and counts (2,) int64: live rays,
+    rows; in list order (the marched rays' order in
+    list_in, a ray's rows by column). counts and scan, the kernel's scratch
+    (1 + ceil(n_in / 8),) int64, must be zero."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    t0: torch.Tensor
+    k0: torch.Tensor
+    limit: torch.Tensor
+    trans: torch.Tensor
+    taken: torch.Tensor
+    rnd: torch.Tensor
+    carried: torch.Tensor
+    list_in: torch.Tensor
+    list_out: torch.Tensor
+    mask: torch.Tensor
+    adj: torch.Tensor
+    carry: torch.Tensor
+    t: torch.Tensor
+    flat: torch.Tensor
+    pos: torch.Tensor
+    dirs: torch.Tensor
+    counts: torch.Tensor
+    scan: torch.Tensor
+
+
+def _cover_library():
+    lib = kernels.library("render_cover_march")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.render_cover_march.argtypes = [p] * 22 + [i] * 10 + [f] * 10 + [p]
+    lib.render_cover_march.restype = ctypes.c_int
+    return lib
+
+
+def _cover_blocks(n: int) -> int:
+    """The kernel's thread blocks for n listed rays: 8 rays (warps) a block."""
+    return -(-n // 8)
+
+
+def render_cover_march(cfg: SamplerConfig, occupancy, pooled, packed, a: CoverLaunch, n_in: int, first: bool,
+                       n_rounds: int, thresh: float):
+    """The kernel (csrc/render_cover_march.cu) on a's tensors, on the card:
+    one round of the rays a.list_in[:n_in]; `first` for the block's first
+    launch. `pooled` is pooled_occupancy(cfg, occupancy), `packed`
+    packed_neighborhood(cfg, occupancy) (the kernel reads no other grid);
+    n_rounds bounds every ray's limit."""
+    dev = a.o.device
+    R, L, P = a.o.shape[0], a.list_in.shape[0], a.trans.shape[-1]
+    if dev.type != "cuda" or not cover_march_takes(cfg, dev):
+        raise ValueError("render_cover_march takes CUDA tensors on a jitter-cover lattice")
+    g = cfg.grid_size
+    _check(dev, (
+        ("pooled", pooled, torch.bool, None), ("packed", packed, torch.int32, (g**3,)),
+        ("o", a.o, torch.float32, (R, 3)), ("d", a.d, torch.float32, (R, 3)), ("t0", a.t0, torch.float32, (R,)),
+        ("k0", a.k0, torch.int64, (R,)), ("limit", a.limit, torch.int32, (R,)),
+        ("trans", a.trans, torch.float32, (R, P)), ("taken", a.taken, torch.int32, (R,)),
+        ("rnd", a.rnd, torch.int32, (R,)), ("carried", a.carried, torch.bool, (R,)),
+        ("list_in", a.list_in, torch.int64, None), ("list_out", a.list_out, torch.int64, (L,)),
+        ("mask", a.mask, torch.bool, (L, CHUNK)), ("adj", a.adj, torch.bool, (L, CHUNK)),
+        ("carry", a.carry, torch.bool, (L, 2)), ("t", a.t, torch.float32, (L, CHUNK)),
+        ("flat", a.flat, torch.int64, (L * (CHUNK + 1),)), ("pos", a.pos, torch.float32, (L * (CHUNK + 1), 3)),
+        ("dirs", a.dirs, torch.float32, (L * (CHUNK + 1), 3)), ("counts", a.counts, torch.int64, (2,)),
+        ("scan", a.scan, torch.int64, (1 + _cover_blocks(L),)),
+    ), n_in, L)
+
+    def launch():
+        err = _cover_library().render_cover_march(
+            pooled.data_ptr(), packed.data_ptr(), a.o.data_ptr(), a.d.data_ptr(), a.t0.data_ptr(), a.k0.data_ptr(),
+            a.limit.data_ptr(), a.trans.data_ptr(), a.taken.data_ptr(), a.rnd.data_ptr(), a.carried.data_ptr(),
+            a.list_in.data_ptr(), a.list_out.data_ptr(), a.mask.data_ptr(), a.adj.data_ptr(), a.carry.data_ptr(),
+            a.t.data_ptr(), a.flat.data_ptr(), a.pos.data_ptr(), a.dirs.data_ptr(), a.counts.data_ptr(),
+            a.scan.data_ptr(), n_in,
+            int(first), n_rounds, cfg.maximum_marching_steps, P, SHARE_ROUND, *_coarse_constants(cfg, pooled),
+            _f32(thresh), *_box(cfg), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"render_cover_march launch failed: CUDA error {err}")
+
+    RenderMarchOp.apply(a.counts, launch)
+    profiling.count("launches.render_cover_march")
+
+
+def render_cover_march_plain(cfg: SamplerConfig, occupancy, pooled, packed, a: CoverLaunch, n_in: int, first: bool,
+                             n_rounds: int, thresh: float):
+    """render_cover_march in PyTorch, on any device and jitter-cover lattice:
+    the same rays, state, rows and counts, in the same order. The kernel's
+    plain version, which its card tests hold it against, and the launch of
+    every round the kernel does not take. The listed rays' coarse pass over
+    the rounds from each ray's start to its limit and the lookahead segment
+    (segment_plan; the window as wide as the widest such span), then
+    march_round(lookahead=1, jitter_cover=True) at the first round from each
+    ray's start that keeps a segment. Its host syncs (the window's width, two
+    nonzeros, the counts' copy) count at site `cover_march`."""
+    rays = a.list_in[:n_in]
+    limit = a.limit[rays].to(torch.int64)
+    if first:
+        taken = torch.zeros_like(rays)
+        c_in = torch.zeros_like(rays, dtype=torch.bool)
+        go = torch.ones_like(rays, dtype=torch.bool)
+        start = torch.zeros_like(rays)
+    else:
+        last, taken, c_in = a.rnd[rays].to(torch.int64), a.taken[rays].to(torch.int64), a.carried[rays]
+        go, start = (last >= 0) & (a.trans[rays] >= thresh).any(dim=1), last + 1
+    with profiling.host_sync("render", "cover_march"):
+        width = int(torch.where(go, limit - start, 0).max())
+    if width <= 0:  # no listed ray has a round left: the counts stay zero
+        return
+    # each ray's window from its start round on: segment j holds ordinals
+    # w0 + 8j, the same float32 sums as from k0 (lattice ordinals < 2^24)
+    w0, s0 = a.k0[rays] + CHUNK * start, RANGE_SEGS * start
+    keep = coarse_segment_mask(cfg, pooled, a.o[rays], a.d[rays], a.t0[rays], RANGE_SEGS * width + 1, w0)
+    plan = segment_plan(keep, w0, s0, n_rounds, limit)
+    rnd = plan.nxt.gather(1, start.clamp(max=n_rounds)[:, None]).squeeze(1)
+    with profiling.host_sync("render", "cover_march"):
+        sel = torch.nonzero(go & (rnd < n_rounds)).squeeze(1)
+    L = sel.numel()
+    if L == 0:  # every listed ray ended: the counts stay zero
+        return
+    ray, rnd, taken, c_in = rays[sel], rnd[sel], taken[sel], c_in[sel]
+    mask, t, pos, _, exited = march_round(cfg, AABB.scene(cfg.aabb_scale), occupancy, packed, plan, sel, rnd, a.o[ray],
+                                          a.d[ray], a.t0[ray], taken, lookahead=1, jitter_cover=True)
+    m, m_next = mask[:, :CHUNK], mask[:, CHUNK]
+    mi = m.to(torch.int64)
+    q = taken[:, None] + torch.cumsum(mi, dim=1) - mi  # the point's sample ordinal on its ray
+    # lerp partner: the next lattice point's evaluation when that point is a
+    # sample too, except at the last sample of a compositing round
+    adj = torch.cat([m[:, 1:], m_next[:, None]], dim=1) & ((q + 1) % SHARE_ROUND != 0)
+    ev = torch.cat([m, m[:, -1:] & adj[:, -1:]], dim=1)  # (L, CHUNK + 1) points to evaluate
+    ev[:, 0] &= ~c_in
+    with profiling.host_sync("render", "cover_march"):
+        rows, cols = torch.nonzero(ev, as_tuple=True)
+    M = rows.numel()
+    taken = taken + mi.sum(dim=1)
+    a.taken[ray] = taken.to(torch.int32)
+    a.rnd[ray] = torch.where(exited | (taken >= cfg.maximum_marching_steps), -1, rnd).to(torch.int32)
+    a.carried[ray] = ev[:, CHUNK]
+    a.list_out[:L] = ray
+    a.mask[:L] = m
+    a.adj[:L] = adj
+    a.carry[:L] = torch.stack([c_in, ev[:, CHUNK]], dim=1)
+    a.t[:L] = t[:, :CHUNK]
+    a.flat[:M] = rows * (CHUNK + 1) + cols
+    a.pos[:M] = pos[rows, cols]
+    a.dirs[:M] = (a.d[ray[rows]] + 1.0) * 0.5
+    with profiling.host_sync("render", "cover_march"):  # copied to the counts' device
+        a.counts.copy_(torch.tensor([L, M], dtype=torch.int64))
+
+
+class CoverRound(NamedTuple):
+    """A marched cover round of a block: the live rays' indices in the block
+    (L,), their (L, 128) sample mask and lerp partners `adj` (column j lerps
+    towards column j + 1's evaluation, column 127 towards the lookahead
+    point's), carry (L, 2) whether the ray carried its column 0's evaluation
+    in from the last round and whether it carries its column 128's out, t
+    (L, 128) the points' t; and the rows to evaluate: flat (M,) indices
+    row * 129 + column, positions and warped directions (M, 3)."""
+
+    ids: torch.Tensor
+    mask: torch.Tensor
+    adj: torch.Tensor
+    carry: torch.Tensor
+    t: torch.Tensor
+    flat: torch.Tensor
+    pos: torch.Tensor
+    dirs: torch.Tensor
+
+
+class CoverMarch:
+    """The cover march of a block of an spp-n Shade frame's hit rays, one
+    launch a round: render_cover_march where cover_march_takes holds, else
+    render_cover_march_plain (counted in render.march.plain on the card).
+
+    o, d (R, 3), t0, k0 and limit (R,) are the block's rays; `trans` (R, P)
+    each pass's transmittance, which the composite updates in place between
+    rounds; n_rounds the frame's most rounds (the max of every hit ray's
+    limit). `tested` and `sampled` count the lattice points the fine march
+    tested (136 a marched ray a round: its 16 segments and the lookahead) and
+    the rows it wrote."""
+
+    def __init__(self, cfg: SamplerConfig, occupancy, pooled, packed, o, d, t0, k0, limit, n_rounds: int, trans,
+                 thresh: float):
+        dev = o.device
+        R = o.shape[0]
+        self.cfg, self.grids, self.thresh, self.n_rounds = cfg, (occupancy, pooled, packed), thresh, n_rounds
+        self.kernel = cover_march_takes(cfg, dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.lists = (torch.arange(R, **i64), torch.empty((R,), **i64), torch.empty((R,), **i64))
+        self.rays = (o.contiguous(), d.contiguous(), t0.contiguous(), k0.contiguous(),
+                     limit.to(torch.int32).contiguous(), trans)
+        self.state = (torch.zeros((R,), dtype=torch.int32, device=dev), torch.zeros((R,), dtype=torch.int32, device=dev),
+                      torch.zeros((R,), dtype=torch.bool, device=dev))
+        rows = R * (CHUNK + 1)
+        self.out = (torch.empty((R, CHUNK), dtype=torch.bool, device=dev),
+                    torch.empty((R, CHUNK), dtype=torch.bool, device=dev),
+                    torch.empty((R, 2), dtype=torch.bool, device=dev), torch.empty((R, CHUNK), **f32),
+                    torch.empty((rows,), **i64), torch.empty((rows, 3), **f32), torch.empty((rows, 3), **f32))
+        # one counter row and one kernel scratch row a launch: a block launches at most n_rounds + 1 times
+        self.counts = torch.zeros((n_rounds + 1, 2), **i64)
+        self.scan = torch.zeros((n_rounds + 1, 1 + _cover_blocks(R)), **i64)
+        self.host = torch.zeros((2,), dtype=torch.int64, pin_memory=dev.type == "cuda")
+        self.n_in, self.launches, self.tested, self.sampled = R, 0, 0, 0
+
+    def next(self) -> CoverRound | None:
+        """March the next round of the rays still live: None once none is."""
+        k = self.launches
+        if self.n_in == 0:
+            return None
+        if k > self.n_rounds:
+            raise RuntimeError(f"a block marches at most {self.n_rounds} rounds")
+        list_in = self.lists[0] if k == 0 else self.lists[1 + (k - 1) % 2]
+        list_out = self.lists[1 + k % 2]
+        a = CoverLaunch(*self.rays, *self.state, list_in, list_out, *self.out, self.counts[k], self.scan[k])
+        if not self.kernel and list_in.device.type == "cuda":
+            profiling.count("render.march.plain")
+        launch = render_cover_march if self.kernel else render_cover_march_plain
+        launch(self.cfg, *self.grids, a, self.n_in, k == 0, self.n_rounds, self.thresh)
+        self.launches += 1
+        with profiling.host_sync("render", "cover_march"):
+            self.host.copy_(self.counts[k], non_blocking=True)
+            if self.host.is_pinned():
+                torch.cuda.current_stream(list_in.device).synchronize()
+        n_live, n_rows = self.host.tolist()
+        self.tested += n_live * (CHUNK + SEG)
+        self.sampled += n_rows
+        self.n_in = n_live
+        if n_live == 0:
+            return None
+        mask, adj, carry, t, flat, pos, dirs = self.out
+        return CoverRound(list_out[:n_live], mask[:n_live], adj[:n_live], carry[:n_live], t[:n_live], flat[:n_rows],
+                          pos[:n_rows], dirs[:n_rows])

@@ -52,8 +52,13 @@ round of csrc/render_march.cu's kernel on the card's PACKED lattice or of
 its plain PyTorch version elsewhere; ConeMarch's whole-lattice rounds on the
 cone lattice), and _render_pass composites each Round it hands out: the
 network and the composite read the round's flat sample rows and its
-(L, W) mask. The spp-8 frame plans and marches here (_kept_segments,
-segment_plan, march_round).
+(L, W) mask. The spp-n Shade frame with shared evaluations marches each
+block of its hit rays through march.py's CoverMarch (one launch a round of
+csrc/render_cover_march.cu's kernel on the card's jitter-cover lattice, of
+its plain version elsewhere), whose first launch of a block is also its
+coarse pass and cull; the other spp-n frames plan the frame's kept segments
+and march the plan's rounds here (_kept_segments, segment_plan,
+march_round).
 
 One pass (n_spp = 1), exactly as ngp_tpu: the pixel offset
 ld_random_pixel_offset(0 if snap else spp); the march start
@@ -95,15 +100,17 @@ Every host<->device synchronisation of a frame (each nonzero, boolean-mask
 index, int() of a device value and blocking copy to the card) sits in a
 render.sync.<site> span at the statement that synchronises, in this module
 or in its callee (utils/qmc.py's ld_random_val, render/buffer.py's
-tonemap, render/march.py's frame geometry, hit rays and syncs a round), and
+tonemap, render/march.py's frame geometry, hit rays and syncs a round: site
+`march` at spp 1, `cover_march` for the shared spp-n frame), and
 counts into the render.host_syncs counters.
 
 With `mesh` of size > 1 (parallel/mesh.py; ngp_tpu's _dp_render_tile,
 :658-684 and :1063-1104), every rank plans the whole frame (window, coarse
 premask, cull) and then renders every size-th of the kept rays from its rank
 on (image order in contiguous blocks would give one rank the sky; the spp-1
-march, which culls as it marches, every size-th of the rays that meet the
-occupied box), spp 1, spp n and every mode through the same pass; each
+march and the shared spp-n cover march, which cull as they march, every
+size-th of the rays that meet the occupied box), spp 1, spp n and every mode
+through the same pass; each
 rank's shaded rows land in a zero frame and one SUM all-reduce after its
 rounds merges the frame, exactly, since one rank writes each pixel. The
 envmap is composited after the merge. `last_frame_samples` and
@@ -118,21 +125,18 @@ of the last frame, `last_frame_points` the lattice points its march tested
 """
 
 from dataclasses import dataclass
-from typing import NamedTuple
 
 import torch
 
 from ngp_tpu_torch.grid.occupancy import occupied_aabb, packed_neighborhood, pooled_occupancy
 from ngp_tpu_torch.models.ngp import NGPModel, apply_density_activation, apply_rgb_activation
 from ngp_tpu_torch.render.envmap import read_envmap
-from ngp_tpu_torch.render.march import RANGE_SEGS, Round, frame_geometry, pass_march
+from ngp_tpu_torch.render.march import RANGE_SEGS, CoverMarch, Round, frame_geometry, march_round, pass_march, segment_plan
 from ngp_tpu_torch.sampling.lattice import (
     CHUNK,
-    SEG,
     coarse_segment_mask,
     jitter_cover_supported,
     lattice_dt,
-    segment_points,
     window_start_inside,
 )
 from ngp_tpu_torch.utils import profiling
@@ -144,10 +148,6 @@ from ngp_tpu_torch.utils.qmc import ld_random_pixel_offset, ld_random_val
 
 RENDER_MODES = ("AO", "Shade", "Normals", "Depth", "Distance", "Stepsize", "Cost")
 EVAL_BATCH = 1 << 18  # rows per network evaluation (the fused kernel's batch)
-# ngp_tpu composites a shared frame in rounds of D occupied samples a ray and
-# lerps to the point itself at each round's last sample; on tiles of at most
-# 1024 rays (small frames) every round is its last stage's D = min(256, W)
-SHARE_ROUND = 256
 SPP_BLOCK_SLOTS = 1 << 27  # (ray, pass, lattice point) entries a block of the n_spp composite holds
 
 
@@ -194,63 +194,6 @@ def composite_weights(valid: torch.Tensor, sdt: torch.Tensor, trans: torch.Tenso
     include = valid & (t_before >= thresh)
     wgt = torch.where(include, alpha * t_before, 0.0)
     return alpha, include, wgt, trans * torch.exp(-torch.where(include, sdt, 0.0).sum(dim=-1))
-
-
-class SegmentPlan(NamedTuple):
-    """The kept coarse segments of a frame's rays: segment j of ray i holds
-    the lattice ordinals w0[i] + 8j .. w0[i] + 8j + 7 and lies in round
-    (s0[i] + j) // RANGE_SEGS; nxt[i, r] is the first round >= r that holds a
-    kept segment of ray i (n_rounds, the last column, where none does)."""
-
-    w0: torch.Tensor  # (R,) int64
-    s0: torch.Tensor  # (R,) int64
-    keep: torch.Tensor  # (R, n_seg) bool
-    nxt: torch.Tensor  # (R, n_rounds + 1) int64
-
-    def rows(self, sel) -> "SegmentPlan":
-        """The plan of the rows `sel`; a boolean mask indexes each of the
-        four tensors, a host sync each."""
-        mask = isinstance(sel, torch.Tensor) and sel.dtype == torch.bool
-        with profiling.host_sync("render", "plan_rows", 4 if mask else 0):
-            return SegmentPlan(self.w0[sel], self.s0[sel], self.keep[sel], self.nxt[sel])
-
-
-def segment_plan(keep, w0, s0, n_rounds: int, limit=None) -> SegmentPlan:
-    """The plan of kept segments `keep` (R, n_seg); rounds >= `limit` (R,)
-    (or n_rounds) hold nothing."""
-    R, n_seg = keep.shape
-    dev = keep.device
-    rnd = (s0[:, None] + torch.arange(n_seg, device=dev)[None, :]) // RANGE_SEGS
-    ok = keep & (rnd < (n_rounds if limit is None else limit[:, None]))
-    has = torch.zeros((R, n_rounds + 1), dtype=torch.bool, device=dev)
-    has.scatter_(1, torch.where(ok, rnd, n_rounds), ok)
-    has[:, n_rounds] = True
-    first = torch.where(has, torch.arange(n_rounds + 1, device=dev), n_rounds)
-    nxt = torch.flip(torch.cummin(torch.flip(first, [1]), dim=1).values, [1])
-    return SegmentPlan(w0, s0, keep, nxt)
-
-
-def march_round(cfg, aabb: AABB, occupancy, packed, plan: SegmentPlan, sel, rnd, o, d, startt, taken, lookahead: int = 0,
-                jitter_cover: bool = False):
-    """Round rnd (L,) of the plan's rays sel (L,): the lattice points of each
-    ray's segments in that round (RANGE_SEGS of them, then `lookahead`
-    segments of the next round), a segment that is not kept testing nothing.
-    o, d, startt and taken (the samples taken before) are the L rays'.
-    Returns (mask (L, W) of the points the ray samples, t (L, W), pos
-    (L, W, 3), idx (L, W) their lattice ordinals, exited (L,) whether a
-    tested point of the round, the lookahead aside, lay outside the box)."""
-    n_seg = plan.keep.shape[1]
-    dev = o.device
-    j = (RANGE_SEGS * rnd - plan.s0[sel])[:, None] + torch.arange(RANGE_SEGS + lookahead, device=dev)[None, :]
-    kept = (j >= 0) & (j < n_seg) & plan.keep.reshape(-1)[sel[:, None] * n_seg + j.clamp(0, n_seg - 1)]
-    idx = plan.w0[sel][:, None] + (j[:, :, None] * SEG + torch.arange(SEG, device=dev)).reshape(j.shape[0], -1)
-    valid = kept.repeat_interleave(SEG, dim=1)
-    inside, occ, t, pos = segment_points(cfg, aabb, occupancy, o, d, startt, idx, packed, jitter_cover)
-    mask = valid & inside & occ
-    m = mask.to(torch.int64)
-    mask = mask & (taken[:, None] + torch.cumsum(m, dim=1) - m < cfg.maximum_marching_steps)
-    exited = (valid & ~inside)[:, : RANGE_SEGS * SEG].any(dim=1)
-    return mask, t, pos, idx, exited
 
 
 @dataclass
@@ -484,11 +427,16 @@ class Renderer:
 
     def _render_passes(self, occupancy, occ_aabb, o, d, cam, spp, n_spp, render_mode, depth_scale, accum_space, env):
         """Passes spp .. spp + n_spp - 1 from one cover march -> (N, 4), their
-        mean in accum_space (each pass over the envmap `env` (N, 4), if any)."""
+        mean in accum_space (each pass over the envmap `env` (N, 4), if any).
+        Shade with share_spp_evals marches each block of the hit rays (this
+        rank's share) through march.CoverMarch, whose first launch finds each
+        ray's first round that keeps a segment; the other modes plan the
+        frame's kept segments here and march the plan's rounds."""
         dev = occupancy.device
         scfg = self.config.sampler
         aabb = AABB.scene(scfg.aabb_scale)
         n = o.shape[0]
+        share = self.share_spp_evals and render_mode == "Shade"
         with profiling.span("spp_march"):
             hit, k0, span = frame_geometry(scfg, o, d, occ_aabb)
             t0, alive = ray_start(aabb, o, d)
@@ -505,21 +453,32 @@ class Renderer:
                 limit = torch.ceil(span[ids] / CHUNK).to(torch.int64)
                 with profiling.host_sync("render", "n_rounds"):
                     n_rounds = int(limit.max())
-                ids, plan = self._share(*self._kept_segments(
-                    occupancy, o, d, t0, ids, k0[ids], RANGE_SEGS * n_rounds + 1, torch.zeros_like(limit), n_rounds, limit
-                ))
+                n_seg = RANGE_SEGS * n_rounds + 1
+                if share:
+                    # every rank's coarse pass counts the whole frame's midpoints, as the plan's does
+                    self.last_frame_points += ids.numel() * n_seg
+                    mine = self._rank_rays()
+                    ids, limit = ids[mine], limit[mine]
+                    grids = (occupancy, pooled_occupancy(scfg, occupancy), packed_neighborhood(scfg, occupancy))
+                else:
+                    ids, plan = self._share(*self._kept_segments(
+                        occupancy, o, d, t0, ids, k0[ids], n_seg, torch.zeros_like(limit), n_rounds, limit
+                    ))
+                    packed = packed_neighborhood(scfg, occupancy)
                 seed = (ids * 786433) & 0xFFFFFFFF
                 u = torch.stack([ld_random_val(spp + s, seed) for s in range(n_spp)], dim=-1)  # (R, P) start jitter
-                packed = packed_neighborhood(scfg, occupancy)
         if ids.numel():
-            share = self.share_spp_evals and render_mode == "Shade"
             per_pass_colour = not share and render_mode in ("Shade", "Normals")
             block = max(1, SPP_BLOCK_SLOTS // (n_spp * CHUNK * (4 if per_pass_colour else 1)))
-            composite = self._composite_shared if share else self._composite_passes
             for b0 in range(0, ids.numel(), block):
                 r = ids[b0 : b0 + block]
-                rays = (o[r], d[r], t0[r], tmax[r], u[b0 : b0 + block], plan.rows(slice(b0, b0 + block)))
-                acc, op, proc = composite(occupancy, packed, rays, cam, render_mode, depth_scale)
+                rays = (o[r], d[r], t0[r], tmax[r], u[b0 : b0 + block])
+                if share:
+                    acc, op, proc = self._composite_shared(grids, rays, k0[r], limit[b0 : b0 + block], n_rounds)
+                else:
+                    acc, op, proc = self._composite_passes(
+                        occupancy, packed, (*rays, plan.rows(slice(b0, b0 + block))), cam, render_mode, depth_scale
+                    )
                 rgb_acc[r], opac[r], processed[r] = acc, op, proc
         out = self._merge(self._shade(rgb_acc, opac, processed, render_mode))  # (N, P, 4)
         if env is not None:
@@ -528,58 +487,44 @@ class Renderer:
             out = torch.cat([linear_to_srgb(out[..., :3]), out[..., 3:]], dim=-1)
         return out.mean(dim=1)
 
-    def _composite_shared(self, occupancy, packed, rays, cam, render_mode, depth_scale):
+    def _composite_shared(self, grids, rays, k0, limit, n_rounds: int):
         """Shade passes sharing one network evaluation per cover point: sums
-        (rgb (R, P, 3), opacity (R, P), processed (R, P)) of a block of rays."""
-        o, d, t0, tmax, u, plan = rays
+        (rgb (R, P, 3), opacity (R, P), processed (R, P)) of a block of rays
+        o, d, t0, tmax (R,...), u (R, P), with window starts k0 and rounds
+        limit (R,), marched by march.CoverMarch over grids (occupancy, pooled,
+        packed). Each pass takes its sample at t + u*dt from the in-cell lerp
+        of the round's evaluations (columns j and j + 1 where adj holds), with
+        its own box test and transmittance chain."""
+        o, d, t0, tmax, u = rays
         scfg = self.config.sampler
         aabb = AABB.scene(scfg.aabb_scale)
         dt = scfg.min_cone_stepsize
         thresh = self.config.render.transmittance_threshold
         dev = o.device
         R, P = u.shape
-        n_rounds = plan.nxt.shape[1] - 1
-        dirs_w = (d + 1.0) * 0.5
         trans = torch.ones((R, P), dtype=torch.float32, device=dev)
         rgb_acc = torch.zeros((R, P, 3), dtype=torch.float32, device=dev)
         opac = torch.zeros((R, P), dtype=torch.float32, device=dev)
-        taken = torch.zeros((R,), dtype=torch.int64, device=dev)
         # the evaluation at a round's first point, made by the round before
-        # (its lookahead) where that round's last point lerps towards it;
-        # a ray that carries one marches the next round (its first segment
-        # holds a cover point, so it is kept)
-        carried = torch.zeros((R,), dtype=torch.bool, device=dev)
+        # (its lookahead) where that round's last point lerps towards it
         carry_sig = torch.zeros((R,), dtype=torch.float32, device=dev)
         carry_rgb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-        live = torch.arange(R, device=dev)
-        rnd = plan.nxt[:, 0]
-        while live.numel():
+        with profiling.span("spp_march"):
+            march = CoverMarch(scfg, *grids, o, d, t0, k0, limit, n_rounds, trans, thresh)
+        while True:
             with profiling.span("spp_march"):
-                mask, t, pos, _, exited = march_round(
-                    scfg, aabb, occupancy, packed, plan, live, rnd, o[live], d[live], t0[live], taken[live], lookahead=1,
-                    jitter_cover=True,
-                )
-                self.last_frame_points += mask.numel()
-                m, m_next = mask[:, :CHUNK], mask[:, CHUNK]
-                mi = m.to(torch.int64)
-                q = taken[live][:, None] + torch.cumsum(mi, dim=1) - mi  # the point's sample ordinal on its ray
-                # lerp partner: the next lattice point's evaluation when that point
-                # is a sample too, except at the last sample of a compositing round
-                adj = torch.cat([m[:, 1:], m_next[:, None]], dim=1) & ((q + 1) % SHARE_ROUND != 0)
-                ev = torch.cat([m, m[:, -1:] & adj[:, -1:]], dim=1)  # (nl, CHUNK + 1) points to evaluate
-                c_in = carried[live]
-                ev[:, 0] &= ~c_in
-                with profiling.host_sync("render", "samples"):
-                    rows, cols = torch.nonzero(ev, as_tuple=True)
-                self.last_frame_samples += rows.numel()
+                r = march.next()
+            if r is None:
+                break
+            live, m, adj = r.ids, r.mask, r.adj
             with profiling.span("spp_network"):
-                sig = torch.zeros(ev.shape, dtype=torch.float32, device=dev)
-                rgb = torch.zeros(ev.shape + (3,), dtype=torch.float32, device=dev)
-                if rows.numel():
-                    sig[rows, cols], rgb[rows, cols] = self._evaluate(aabb.relative_pos(pos[rows, cols]), dirs_w[live[rows]])
+                sig = torch.zeros((live.numel(), CHUNK + 1), dtype=torch.float32, device=dev)
+                rgb = torch.zeros((live.numel(), CHUNK + 1, 3), dtype=torch.float32, device=dev)
+                if r.flat.numel():
+                    sig.view(-1)[r.flat], rgb.view(-1, 3)[r.flat] = self._evaluate(aabb.relative_pos(r.pos), r.dirs)
+                c_in = r.carry[:, 0]
                 sig[:, 0] = torch.where(c_in, carry_sig[live], sig[:, 0])
                 rgb[:, 0] = torch.where(c_in[:, None], carry_rgb[live], rgb[:, 0])
-                carried[live] = ev[:, CHUNK]
                 carry_sig[live], carry_rgb[live] = sig[:, CHUNK], rgb[:, CHUNK]
 
             with profiling.span("spp_composite"):
@@ -589,19 +534,14 @@ class Renderer:
                 ul = u[live][:, :, None]  # (nl, P, 1)
                 sig_p = s0[:, None, :] * (1.0 - ul) + s1[:, None, :] * ul  # (nl, P, CHUNK)
                 # each pass's box test at its jittered point (t grows along the ray)
-                valid = m[:, None, :] & (fma(ul, dt, t[:, None, :CHUNK]) <= tmax[live][:, None, None])
+                valid = m[:, None, :] & (fma(ul, dt, r.t[:, None, :]) <= tmax[live][:, None, None])
                 _, _, wgt, tr = composite_weights(valid, torch.where(valid, sig_p * dt, 0.0), trans[live], thresh)
                 # sum_j w_j * ((1 - u) c0_j + u c1_j), as two (P, CHUNK) x (CHUNK, 3) products
                 rgb_acc[live] += (1.0 - ul) * torch.bmm(wgt, c0) + ul * torch.bmm(wgt, c1)
                 opac[live] += wgt.sum(dim=2)
                 trans[live] = tr
-            with profiling.span("spp_march"):
-                tk = taken[live] + mi.sum(dim=1)
-                taken[live] = tk
-                nxt = plan.nxt[live, rnd + 1]
-                more = ~exited & (tr >= thresh).any(dim=1) & (tk < scfg.maximum_marching_steps) & (nxt < n_rounds)
-                with profiling.host_sync("render", "live_rays", 2):
-                    live, rnd = live[more], nxt[more]
+        self.last_frame_points += march.tested
+        self.last_frame_samples += march.sampled
         return rgb_acc, opac, torch.zeros((R, P), dtype=torch.int64, device=dev)
 
     def _composite_passes(self, occupancy, packed, rays, cam, render_mode, depth_scale):
@@ -628,6 +568,8 @@ class Renderer:
         live = torch.arange(R, device=dev)
         rnd = plan.nxt[:, 0]
         while live.numel():
+            if dev.type == "cuda":
+                profiling.count("render.march.plain")
             with profiling.span("spp_march"):
                 mask, _, _, idx, exited = march_round(
                     scfg, aabb, occupancy, packed, plan, live, rnd, o[live], d[live], t0[live], taken[live], jitter_cover=True

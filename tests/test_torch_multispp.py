@@ -23,6 +23,7 @@ from ngp_tpu_torch.grid.occupancy import packed_neighborhood as t_packed_neighbo
 from ngp_tpu_torch.models.interop import params_from_numpy
 from ngp_tpu_torch.models.ngp import NGPModel as TModel
 from ngp_tpu_torch.render import renderer as t_renderer
+from ngp_tpu_torch.render.march import SHARE_ROUND
 from ngp_tpu_torch.sampling import lattice as t_lattice
 from ngp_tpu_torch.utils.aabb import AABB as TAABB
 from ngp_tpu_torch.utils.config import NGPConfig as TCfg
@@ -261,5 +262,5 @@ def test_shared_lerp_round_boundary_matches_jax(rough):
     (1.3e-5 without the boundary); allowed 2e-6."""
     ref, got, r = _rough_frames(rough, True, dense=True)
     err = np.abs(got - ref)
-    assert r.last_frame_samples > t_renderer.SHARE_ROUND * 32 * 32 // 2
+    assert r.last_frame_samples > SHARE_ROUND * 32 * 32 // 2
     assert err.max() <= 2e-6, err.max()

@@ -239,16 +239,17 @@ def test_eager_causes_name_the_first_shape_field_that_moved(tiny):
 @pytest.mark.parametrize("spp", [1, 4])
 def test_a_frame_has_its_stages_and_counts_its_syncs(tiny, clean, spp):
     """spp 1 (the pass's march in render/march.py, its syncs at site
-    `march`) and spp 4 (one cover march, the shared composite, its samples
-    compacted at site `samples`): the three stages and the sync spans, and
-    the same count of host syncs on two renders of one pose."""
+    `march`) and spp 4 (one cover march in render/march.py, the shared
+    composite, its rows compacted at site `cover_march`): the three stages
+    and the sync spans, and the same count of host syncs on two renders of
+    one pose."""
     from ngp_tpu_torch.data.synthetic import look_at_pose
 
     tb = tiny
     tb.set_nerf_camera_matrix(look_at_pose(np.array([2.4, 1.2, 1.6])))
     profiling.enable()
     counts = []
-    rounds = "march" if spp == 1 else "samples"
+    rounds = "march" if spp == 1 else "cover_march"
     for _ in range(2):
         tb.render(32, 24, spp, True)
         rec = profiling.records("render")[-1]
@@ -256,7 +257,7 @@ def test_a_frame_has_its_stages_and_counts_its_syncs(tiny, clean, spp):
         names = {s["name"] for s in rec["spans"]}
         assert {"spp_march", "spp_network", "spp_composite", "render.sync.readback", f"render.sync.{rounds}"} <= names
         # the syncs inside the renderer's callees are counted where they happen
-        callees = ("camera_rays", "frame_geometry", "jitter", "march" if spp == 1 else "plan_rows", "background")
+        callees = ("camera_rays", "frame_geometry", "jitter", rounds, "background")
         assert all(rec["counters"][f"render.host_syncs.{site}"] > 0 for site in callees)
         assert rec["counters"]["render.frames"] == 1
         per_site = sum(v for k, v in rec["counters"].items() if k.startswith("render.host_syncs."))
